@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: card name and power limit (nvidia-smi), torch and CUDA
-   versions, kernel library build time;
+   versions, kernel build time (one nvcc per source, all at once);
 2. each CUDA kernel against its plain PyTorch version on the card (exact
    equality), with both times at the main path's shapes;
 3. the main path: `assemble -k 32` through the port's CLI on the parity
@@ -16,11 +16,21 @@ Phases, one JSON line each; any failure exits non-zero:
 4. the bubble configuration: `assemble -u 0.1` on two haplotypes; the
    output files must hash to platanus_b_tpu_torch/smoke_expected.json
    (made by the JAX package on the CPU) and the edit_distance kernel must
-   have run.
+   have run;
+5. an `iterate` round without solve_dbg through the port's CLI, from its
+   work directory with relative paths: `assemble -kmer_occ_only`,
+   `kmer_divide`, `polish`, `gap_close -reduce_redundancy` and `merge` on
+   the gap-closing dataset of parity/gapclose_bench.py:50-72 (a 1.2 Mbp
+   scaffold with 1,000 gaps, 240,240 read pairs, made with tests/simdata.py);
+   every output file must hash to smoke_expected.json, and kmer_extract
+   and ungap_align must have run; then the round once more under
+   torch.profiler for the card's busy share of each command.
 
-Then a {"kernels": [...]} line, the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
-no result. Working files go under platanus_b_tpu_torch/build/smoke/.
+Each of phases 3-5 sets the launch counts to 0 just before it and reads
+them just after. Then a {"kernels": [...]} line, the nvidia-smi line, and
+the last line {"ok": true, "device": {...}}. Without a CUDA card it exits
+1 and prints no result. Working files go under
+platanus_b_tpu_torch/build/smoke/.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -37,6 +48,25 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASE = {"name": "start"}
+
+# phase 5: the dataset of parity/gapclose_bench.py at its defaults, and the
+# round's commands (iterate_cmd.py:88-149 without solve_dbg), run from the
+# work directory so that output names carry no directory
+ROUND_DATASET = {"n_gaps": 1000, "gap_len": 150, "segment": 1200,
+                 "coverage": 40.0, "read_len": 100, "insert": 400, "sd": 40,
+                 "error": 0.002, "seed": 42}
+ROUND_INPUTS = ("scaffold.fa", "r1.fa", "r2.fa")
+ROUND_STEPS = [
+    ["assemble", "-kmer_occ_only", "-n", "1", "-k", "62", "-f", "r1.fa",
+     "r2.fa", "-o", "occ"],
+    ["kmer_divide", "-k", "occ_kmer_occ.bin", "-f", "scaffold.fa", "-o",
+     "round"],
+    ["polish", "-c", "scaffold.fa", "-IP1", "r1.fa", "r2.fa", "-o", "round"],
+    ["gap_close", "-reduce_redundancy", "-c", "round_polished_scaffold.fa",
+     "-IP1", "r1.fa", "r2.fa", "-o", "round"],
+    ["merge", "-f", "round_gapClosed_polished_scaffold.fa",
+     "round_extraContig.fa", "-k", "1.0", "-l", "1.0", "-o", "round"],
+]
 
 
 def emit(obj: dict) -> None:
@@ -68,7 +98,8 @@ def ptxas_summary(log: str) -> dict:
     name = None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = "edit_distance" if "edit_distance" in ln else "kmer_extract"
+            name = next((k for k in ("edit_distance", "kmer_extract",
+                                     "ungap_align") if k in ln), "other")
         elif name and "Used" in ln and "registers" in ln:
             words = ln.replace(",", " ").split()
             regs = int(words[words.index("registers") - 1])
@@ -109,6 +140,67 @@ def sorted_set_sha256(seqs: list[str]) -> str:
 def file_sha256(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# phase 5 helpers (also used by tests/torch_smoke_expected.py)
+# ---------------------------------------------------------------------------
+
+def make_round_dataset(data: str, ds: dict) -> dict:
+    """parity/gapclose_bench.py:50-72 with tests/simdata.py, the same calls
+    in the same order: a genome, a scaffold copy with `gap_len` Ns at each
+    segment boundary, innie pairs from the genome. Returns the files'
+    sha256."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import simdata
+    os.makedirs(data, exist_ok=True)
+    rng = np.random.default_rng(ds["seed"])
+    genome = simdata.random_genome(rng, (ds["n_gaps"] + 1) * ds["segment"])
+    scaf = list(genome)
+    for g in range(ds["n_gaps"]):
+        mid = (g + 1) * ds["segment"] - ds["gap_len"] // 2
+        for i in range(mid, mid + ds["gap_len"]):
+            scaf[i] = "N"
+    scaffold = "".join(scaf)
+    with open(os.path.join(data, "scaffold.fa"), "w") as f:
+        f.write(f">scaf1_len{len(scaffold)}_cov40_read{ds['read_len']}"
+                f"_maxK62\n")
+        for i in range(0, len(scaffold), 80):
+            f.write(scaffold[i: i + 80] + "\n")
+    fwd, rev = simdata.paired_reads(rng, genome, ds["read_len"], ds["insert"],
+                                    ds["sd"], ds["coverage"],
+                                    error_rate=ds["error"])
+    simdata.write_fasta(os.path.join(data, "r1.fa"), fwd)
+    simdata.write_fasta(os.path.join(data, "r2.fa"), rev)
+    return {name: file_sha256(os.path.join(data, name))
+            for name in ROUND_INPUTS}
+
+
+def run_round(work: str, data: str, cli_main) -> dict:
+    """ROUND_STEPS through `cli_main` from `work`, the inputs copied there;
+    returns each command's wall (s)."""
+    os.makedirs(work, exist_ok=True)
+    for name in ROUND_INPUTS:
+        shutil.copy(os.path.join(data, name), os.path.join(work, name))
+    walls = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for argv in ROUND_STEPS:
+            t0 = time.perf_counter()
+            rc = cli_main(list(argv))
+            walls[argv[0]] = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"{' '.join(argv)} exited {rc}")
+    finally:
+        os.chdir(cwd)
+    return walls
+
+
+def round_hashes(work: str) -> dict:
+    """sha256 of every file the round wrote."""
+    return {name: file_sha256(os.path.join(work, name))
+            for name in sorted(os.listdir(work)) if name not in ROUND_INPUTS}
 
 
 # ---------------------------------------------------------------------------
@@ -288,26 +380,128 @@ def check_kmer_extract(dev, rng, main_reads):
     return results
 
 
+def check_ungap_align(dev, data: str):
+    """ungap_align against its plain version on all five outputs, exactly:
+    timed at the main path's shape (the round's forward reads against the
+    scaffold's index, as polish maps them: S = 5, H = 16, min_identity 0),
+    then on the edge sets of simulate.ungap_edge_inputs."""
+    import torch
+
+    from platanus_b_tpu_torch.commands.libparse import (LibrarySpec,
+                                                        load_pair_library)
+    from platanus_b_tpu_torch.models import mapper
+    from platanus_b_tpu_torch.simulate import ungap_edge_inputs
+    results = []
+
+    def compare(name, args, timed=False, **extra):
+        got = mapper.ungap_align(*args)
+        want = mapper.ungap_align_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((g.double() - w.double()).abs().max()) if len(g) else 0.0
+                  for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        check(same, f"ungap_align {name}: kernel != plain (max err {err})")
+        rec = {"set": name, "reads": int(args[0].shape[0]),
+               "slots": int(args[4].shape[1] * args[4].shape[2]),
+               "width": int(args[0].shape[1]),
+               "mapped": int((got[0] != 0).sum()), "max_abs_err": err, **extra}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: mapper.ungap_align(*args))
+            rec["plain_ms"] = cuda_ms(lambda: mapper.ungap_align_plain(*args),
+                                      reps=2)
+        results.append(rec)
+
+    lib = load_pair_library(LibrarySpec(1, [("IP", [os.path.join(data, "r1.fa"),
+                                                    os.path.join(data, "r2.fa")])]))
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    contigs = [lut[np.frombuffer(x.encode(), np.uint8)]
+               for x in read_fasta(os.path.join(data, "scaffold.fa"))]
+    index = mapper.ContigIndex(contigs, key_length=32, device=dev)
+    codes = torch.from_numpy(lib.fwd_codes).to(dev)
+    lens = torch.from_numpy(lib.fwd_lengths).to(dev)
+    S = -(-codes.shape[1] // 32) + 1
+    cand = mapper.ungap_candidates(index, codes, lens, 32, S,
+                                   mapper.MAX_CANDIDATES)
+    compare("main_path", (codes, lens, index.pool_t, index.starts_t, *cand,
+                          0.0), timed=True)
+    del cand
+    for seed, width, mi in ((1, 100, 0.0), (2, 100, 0.97), (3, 150, 0.9),
+                            (4, 300, 0.5), (5, 600, 0.9)):
+        arrs = ungap_edge_inputs(seed, width=width, min_identity=mi)
+        args = [torch.from_numpy(a).to(dev) for a in arrs[:-1]] + [arrs[-1]]
+        compare(f"edge_{seed}_w{width}", args, min_identity=mi)
+    return results
+
+
 def load_main_reads(path: str, dev):
     """The main run's reads staged on the card as assemble stages them."""
-    from platanus_b_tpu.io.reads import load_read_batches
-    from platanus_b_tpu_torch.models.assemble_core import stage_reads
-    return stage_reads(list(load_read_batches([path])), dev)
+    from platanus_b_tpu_torch.models.assemble_core import stage_read_files
+    return stage_read_files([path], dev)
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: the main path through the CLI
+# phases 3-5: the main path through the CLI
 # ---------------------------------------------------------------------------
 
-def run_cli(argv: list[str]) -> float:
+def reset_launches() -> None:
+    from platanus_b_tpu_torch import kernels
+    for key in kernels.LAUNCHES:
+        kernels.LAUNCHES[key] = 0
+
+
+def device_busy_ms(prof) -> tuple[float, dict]:
+    """Sum of the card's kernel and copy time in a torch.profiler run, and
+    the five largest kernels by name (ms)."""
+    from torch.autograd import DeviceType
+    busy = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            name = evt.key.split("(")[0].split("<")[0].strip()[:60]
+            busy[name] = busy.get(name, 0.0) + us / 1000.0
+    top = dict(sorted(busy.items(), key=lambda kv: -kv[1])[:5])
+    return sum(busy.values()), top
+
+
+def run_cli(argv: list[str], record: dict | None = None,
+            profile: bool = False) -> int:
+    """One command through the port's CLI; a non-zero exit fails the run.
+    With `record`, adds the command's wall, launches, stage times and peak
+    device memory under its name; with `profile`, also the card's busy
+    time from torch.profiler (the wall then includes the profiler's
+    start-up and overhead, so the idle share is taken against the wall
+    of an unprofiled run)."""
+    import contextlib
+
+    import torch
+
+    from platanus_b_tpu_torch import kernels
     from platanus_b_tpu_torch.commands.main import main as cli_main
     from platanus_b_tpu_torch.utils.log import LOG
     LOG.reset()
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ctx = (torch.profiler.profile(activities=acts) if profile
+           else contextlib.nullcontext())
     t0 = time.perf_counter()
-    rc = cli_main(argv)
+    with ctx as prof:
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(rc == 0, f"assemble {' '.join(argv)} exited {rc}")
-    return wall
+    check(rc == 0, f"{' '.join(argv)} exited {rc}")
+    if record is not None:
+        rec = {"wall_s": wall, "stage_s": dict(LOG.timings),
+               "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before},
+               "peak_device_gib": torch.cuda.max_memory_allocated() / (1 << 30)}
+        if profile:
+            busy, top = device_busy_ms(prof)
+            rec.update(device_busy_ms=busy, top_device_ms=top)
+        record[argv[0]] = rec
+    return rc
 
 
 def main() -> int:
@@ -346,46 +540,64 @@ def main() -> int:
 
     work = os.path.join(REPO, "platanus_b_tpu_torch", "build", "smoke")
     os.makedirs(work, exist_ok=True)
+    with open(os.path.join(REPO, "platanus_b_tpu_torch",
+                           "smoke_expected.json")) as f:
+        exp = json.load(f)
+    check("round" in exp, "smoke_expected.json has no round record")
     gbp = args.genome_bp
     reads_fa = os.path.join(work, f"reads_{gbp}.fa")
+    t0 = time.perf_counter()
     simulate_reads(reads_fa, gbp, 125, 40, 0.003, 123)
+    round_data = os.path.join(work, "round_data")
+    inputs = make_round_dataset(round_data, ROUND_DATASET)
+    emit({"phase": "datasets", "ok": True, "seconds": time.perf_counter() - t0,
+          "round_inputs_sha256": inputs})
+    check(ROUND_DATASET == exp["round"]["dataset"]
+          and inputs == exp["round"]["inputs_sha256"],
+          "the round dataset differs from the one smoke_expected.json was "
+          "made from")
 
     kern = {"edit_distance": {"name": "edit_distance", "route": "cuda",
                               "source": "platanus_b_tpu_torch/csrc/edit_distance.cu",
                               "replaces": "platanus_b_tpu/ops/pallas_align.py:43"},
             "kmer_extract": {"name": "kmer_extract", "route": "cuda",
                              "source": "platanus_b_tpu_torch/csrc/kmer_extract.cu",
-                             "replaces": "platanus_b_tpu/ops/kmer.py:25"}}
+                             "replaces": "platanus_b_tpu/ops/kmer.py:25"},
+            "ungap_align": {"name": "ungap_align", "route": "cuda",
+                            "source": "platanus_b_tpu_torch/csrc/ungap_align.cu",
+                            "replaces": "platanus_b_tpu/models/mapper.py:374"}}
     PHASE["name"] = "kernels"
     rng = np.random.default_rng(2024)
     ed = check_edit_distance(dev, rng)
     km = check_kmer_extract(dev, rng, load_main_reads(reads_fa, dev))
+    ua = check_ungap_align(dev, round_data)
     emit({"phase": "kernels", "ok": True, "edit_distance": ed,
-          "kmer_extract": km})
-    for name, recs in (("edit_distance", ed), ("kmer_extract", km)):
+          "kmer_extract": km, "ungap_align": ua})
+    for name, recs in (("edit_distance", ed), ("kmer_extract", km),
+                       ("ungap_align", ua)):
         timed = [r for r in recs if "ms" in r][0]
         kern[name].update(max_abs_err=max(r["max_abs_err"] for r in recs),
                           ms=timed["ms"], plain_ms=timed["plain_ms"],
                           timed_set=timed["set"])
     torch.cuda.empty_cache()
+    launches = {}
 
     # ---- phase 3: the main path at the parity scale
     PHASE["name"] = "main_path"
-    for key in kernels.LAUNCHES:
-        kernels.LAUNCHES[key] = 0
-    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     prefix = os.path.join(work, f"out_{gbp}")
-    from platanus_b_tpu_torch.utils.log import LOG
-    wall = run_cli(["assemble", "-f", reads_fa, "-k", "32", "-o", prefix])
-    timings = dict(LOG.timings)
-    launches_main = dict(kernels.LAUNCHES)
+    steps: dict = {}
+    run_cli(["assemble", "-f", reads_fa, "-k", "32", "-o", prefix], steps)
+    launches["main_path"] = dict(kernels.LAUNCHES)
     seqs = read_fasta(prefix + "_contig.fa")
     got = sorted_set_sha256(seqs)
     ref_path = os.path.join(REPO, "parity", f"PARITY_assemble_{gbp}.json")
-    rec = {"phase": "main_path", "genome_bp": gbp, "wall_s": wall,
+    rec = {"phase": "main_path", "genome_bp": gbp,
+           "wall_s": steps["assemble"]["wall_s"],
            "num_seqs": len(seqs), "sorted_set_sha256": got,
-           "launches": launches_main, "stage_s": timings,
-           "peak_device_gib": torch.cuda.max_memory_allocated() / (1 << 30)}
+           "launches": launches["main_path"],
+           "stage_s": steps["assemble"]["stage_s"],
+           "peak_device_gib": steps["assemble"]["peak_device_gib"]}
     if os.path.exists(ref_path):
         with open(ref_path) as f:
             ref = json.load(f)["platanus_b_tpu"]
@@ -398,36 +610,70 @@ def main() -> int:
         rec["error"] = f"no parity record {os.path.relpath(ref_path, REPO)}"
     emit(rec)
     check(rec["ok"], "contig set differs from the parity record")
-    check(launches_main["kmer_extract"] > 0, "kmer_extract never launched")
+    check(launches["main_path"]["kmer_extract"] > 0, "kmer_extract never launched")
 
-    # ---- phase 4: the bubble configuration (counts carry on from phase 3)
+    # ---- phase 4: the bubble configuration
     PHASE["name"] = "bubble"
-    with open(os.path.join(REPO, "platanus_b_tpu_torch",
-                           "smoke_expected.json")) as f:
-        exp = json.load(f)
     ds = exp["dataset"]
     bub_fa = os.path.join(work, "bubble_reads.fa")
     simulate_two_haplotypes(bub_fa, ds["genome_bp"], ds["het_rate"],
                             ds["read_len"], ds["coverage_each"],
                             ds["error"], ds["seed"])
     bprefix = os.path.join(work, "bubble")
-    wall_b = run_cli(["assemble", "-f", bub_fa, "-o", bprefix] + exp["flags"])
-    launches = dict(kernels.LAUNCHES)
+    reset_launches()
+    steps = {}
+    run_cli(["assemble", "-f", bub_fa, "-o", bprefix] + exp["flags"], steps)
+    launches["bubble"] = dict(kernels.LAUNCHES)
     hashes = {name: file_sha256(f"{bprefix}_{name}") for name in exp["sha256"]}
     ok = hashes == exp["sha256"]
     bubble_bytes = os.path.getsize(f"{bprefix}_contigBubble.fa") \
         if os.path.exists(f"{bprefix}_contigBubble.fa") else 0
-    emit({"phase": "bubble", "ok": ok, "wall_s": wall_b, "sha256": hashes,
-          "expected_sha256": exp["sha256"],
-          "contigBubble_bytes": bubble_bytes,
-          "launches": {k: launches[k] - launches_main[k] for k in launches},
-          "stage_s": dict(LOG.timings)})
+    emit({"phase": "bubble", "ok": ok, "wall_s": steps["assemble"]["wall_s"],
+          "sha256": hashes, "expected_sha256": exp["sha256"],
+          "contigBubble_bytes": bubble_bytes, "launches": launches["bubble"],
+          "stage_s": steps["assemble"]["stage_s"],
+          "peak_device_gib": steps["assemble"]["peak_device_gib"]})
     check(ok, "bubble-configuration outputs differ from smoke_expected.json")
     check(bubble_bytes > 0, "no bubble was crushed")
+    check(launches["bubble"]["edit_distance"] > 0, "edit_distance never launched")
+
+    # ---- phase 5: an iterate round without solve_dbg
+    PHASE["name"] = "round"
+    rexp = exp["round"]
+    round_work = os.path.join(work, "round")
+    shutil.rmtree(round_work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    reset_launches()
+    steps = {}
+    run_round(round_work, round_data, lambda argv: run_cli(argv, steps))
+    launches["round"] = dict(kernels.LAUNCHES)
+    hashes = round_hashes(round_work)
+    ok = hashes == rexp["sha256"]
+    emit({"phase": "round", "ok": ok, "sha256": hashes,
+          "expected_sha256": rexp["sha256"], "launches": launches["round"],
+          "steps": steps, "jax_cpu_wall_s": rexp.get("jax_cpu_wall_s")})
+    check(ok, "round outputs differ from smoke_expected.json")
+    for name in ("kmer_extract", "ungap_align"):
+        check(launches["round"][name] > 0, f"{name} never launched in the round")
+    # the round once more under torch.profiler: the card's idle share of
+    # each command, against the unprofiled wall above
+    prof_work = os.path.join(work, "round_profiled")
+    shutil.rmtree(prof_work, ignore_errors=True)
+    walls = {name: rec["wall_s"] for name, rec in steps.items()}
+    steps = {}
+    run_round(prof_work, round_data,
+              lambda argv: run_cli(argv, steps, profile=True))
+    check(round_hashes(prof_work) == rexp["sha256"],
+          "profiled round outputs differ from smoke_expected.json")
+    for name, rec in steps.items():
+        rec["device_idle_share"] = max(
+            0.0, 1.0 - rec["device_busy_ms"] / (1000.0 * walls[name]))
+    emit({"phase": "round_profiled", "ok": True, "steps": steps})
 
     PHASE["name"] = "summary"
     for name, entry in kern.items():
-        entry["launches"] = launches[name]
+        entry["launches"] = sum(ph[name] for ph in launches.values())
+        entry["launches_by_phase"] = {p: ph[name] for p, ph in launches.items()}
         check(entry["launches"] > 0, f"{name} never launched on the main path")
     emit({"kernels": list(kern.values())})
     print(smi, flush=True)

@@ -1,9 +1,11 @@
 """CLI entry point (counterpart of platanus_b_tpu/commands/main.py).
 
-Usage: python -m platanus_b_tpu_torch assemble [options]
+Usage: python -m platanus_b_tpu_torch <command> [options]
 
-Only `assemble` is ported; any other subcommand of platanus_b_tpu stops
-with a typed ArgError (exit code 5).
+The ported commands are in COMMANDS; any other subcommand of
+platanus_b_tpu stops with a typed ArgError (exit code 5). Paired-library
+flags (-IP1 r1 r2, -ip2 ..., -OP/-op) are taken out of argv before
+argparse runs, as the JAX package does (main.py:79-86).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from platanus_b_tpu.utils.errors import ArgError, PlatanusError
 from .. import REFERENCE_VERSION, __version__
 from ..utils.log import LOG
 
-COMMANDS = ("assemble",)
+COMMANDS = ("assemble", "gap_close", "kmer_divide", "merge", "polish")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -26,8 +28,13 @@ def build_parser() -> argparse.ArgumentParser:
                      f"port of platanus_b_tpu (Platanus_B v{REFERENCE_VERSION} "
                      f"capabilities); commands: {', '.join(COMMANDS)}"))
     sub = parser.add_subparsers(dest="command", required=True)
-    from . import assemble_cmd
+    from . import (assemble_cmd, gap_close_cmd, kmer_divide_cmd, merge_cmd,
+                   polish_cmd)
     assemble_cmd.add_parser(sub)
+    gap_close_cmd.add_parser(sub)
+    polish_cmd.add_parser(sub)
+    merge_cmd.add_parser(sub)
+    kmer_divide_cmd.add_parser(sub)
     return parser
 
 
@@ -40,7 +47,10 @@ def main(argv: list[str] | None = None) -> int:
         if argv and not argv[0].startswith("-") and argv[0] not in COMMANDS:
             raise ArgError(f"unknown command for platanus_b_tpu_torch: "
                            f"{argv[0]} (available: {', '.join(COMMANDS)})")
+        from .libparse import extract_library_args
+        argv, libspecs = extract_library_args(argv)
         args = build_parser().parse_args(argv)
+        args.libspecs = libspecs
         rc = args.func(args)
     except PlatanusError as e:
         LOG.info(f"ERROR({e.exit_id}): {e.message}")

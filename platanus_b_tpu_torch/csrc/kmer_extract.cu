@@ -105,13 +105,23 @@ kmer_extract_kernel(const uint32_t* __restrict__ words,
             }
             key = le ? f : rc;
         }
+        // an odd W leaves the last lane's low word missing: it is 0, except
+        // for the all-ones key, whose lanes are all INT64_MAX like the
+        // SENTINEL's (ops/keys.py:words_to_lanes)
+        uint32_t pad = 0u;
+        if (W % 2) {
+            uint32_t all = 0xFFFFFFFFu;
+#pragma unroll
+            for (int j = 0; j < W; ++j) all &= key[j];
+            pad = all == 0xFFFFFFFFu ? 0xFFFFFFFFu : 0u;
+        }
         long long* o = out + gid * L;
 #pragma unroll
         for (int j = 0; j < L; ++j) {
             long long lane;
             if (valid) {
                 uint64_t hi = key[2 * j];
-                uint64_t lo = (2 * j + 1 < W) ? key[2 * j + 1] : 0u;
+                uint64_t lo = (2 * j + 1 < W) ? key[2 * j + 1] : pad;
                 lane = (long long)(((hi << 32) | lo) ^ 0x8000000000000000ull);
             } else {
                 lane = 0x7FFFFFFFFFFFFFFFll;

@@ -13,10 +13,11 @@ import torch
 
 from .models.assemble_core import KmerTable
 from .models.dbg import DBG
+from .models.mapper import ContigIndex
 from .ops.keys import keys_from_words, keys_to_words
 
-__all__ = ["keys_from_words", "keys_to_words", "dbg_from_arrays",
-           "kmer_table_from_arrays"]
+__all__ = ["keys_from_words", "keys_to_words", "contig_index_from_arrays",
+           "dbg_from_arrays", "kmer_table_from_arrays"]
 
 
 def kmer_table_from_arrays(k: int, words: np.ndarray, counts: np.ndarray,
@@ -36,3 +37,15 @@ def dbg_from_arrays(k: int, words: np.ndarray, counts: np.ndarray,
     if alive is not None:
         dbg.alive = torch.from_numpy(np.asarray(alive[:n], bool)).to(device)
     return dbg
+
+
+def contig_index_from_arrays(key_length: int, key_table: np.ndarray,
+                             key_pos: np.ndarray, pool: np.ndarray,
+                             starts: np.ndarray, lengths: np.ndarray,
+                             table_len: int, device="cpu") -> ContigIndex:
+    """Port ContigIndex from a JAX ContigIndex's numpy arrays (key_table
+    (cap, W) u32 words with SENTINEL padding, key_pos, pool, starts,
+    lengths, table_len), capacities and pad values as they are."""
+    return ContigIndex.from_arrays(key_length, keys_from_words(key_table),
+                                   key_pos, pool, starts, lengths, table_len,
+                                   device)

@@ -16,7 +16,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from platanus_b_tpu.io.reads import ReadBatch
+from platanus_b_tpu.io.reads import ReadBatch, load_read_batches
 
 from ..ops import count as cnt
 from ..ops.keys import (is_sentinel, keys_to_words, lanes_to_words, num_lanes,
@@ -114,6 +114,11 @@ def stage_reads(batches: list[ReadBatch], device) -> StagedReads:
     return StagedReads(torch.from_numpy(mat).to(device),
                        torch.from_numpy(lens).to(device),
                        any(b.has_n for b in live), max_len)
+
+
+def stage_read_files(paths: list[str], device) -> StagedReads:
+    """Read files (FASTA/FASTQ) staged on the device, as assemble reads them."""
+    return stage_reads(list(load_read_batches(paths)), device)
 
 
 def count_reads_device(reads: StagedReads, k: int):

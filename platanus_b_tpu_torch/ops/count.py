@@ -7,8 +7,9 @@ rows (no power-of-two capacity): ``(keys (n, L) int64 lanes, counts (n,)
 int64)``, sorted ascending. Occurrences saturate at MAX_OCCURRENCE like the
 reference's u16 counter.
 
-The host helpers at the end (cutoff, distribution average, TSV and
-``kmer_occ.bin`` writers) are lifted unchanged from ops/count.py:581-780.
+The host helpers at the end (cutoff, distribution average, TSV,
+``kmer_occ.bin`` writer and reader) are lifted unchanged from
+ops/count.py:581-780.
 """
 
 from __future__ import annotations
@@ -323,3 +324,35 @@ def write_occurrence_table_binary(path: str, keys: np.ndarray,
             f.write(np.uint64(w).tobytes())
             f.write(keys.astype(np.uint32).tobytes())
             f.write(counts.tobytes())
+
+
+def read_occurrence_table_binary(path: str):
+    """Inverse of write_occurrence_table_binary (count.py:742; also reads
+    tables written by the reference binary for k <= 32); returns (k, keys
+    (N, W) u32 words sorted, counts (N,) u32)."""
+    with open(path, "rb") as f:
+        k = int(np.frombuffer(f.read(8), np.uint64)[0])
+        second = np.frombuffer(f.read(8), np.uint64)[0]
+        if k > 32 and second == _INTERNAL_OCC_MAGIC:
+            n = int(np.frombuffer(f.read(8), np.uint64)[0])
+            w = int(np.frombuffer(f.read(8), np.uint64)[0])
+            keys = np.frombuffer(f.read(4 * n * w),
+                                 np.uint32).reshape(n, w).copy()
+            counts = np.frombuffer(f.read(2 * n),
+                                   np.uint16).astype(np.uint32)
+            return k, keys, counts
+        # reference DoubleHash format: {u64 slot, u64 key, u16 value}*
+        rec = np.frombuffer(f.read(), dtype=np.dtype(
+            [("slot", "<u8"), ("key", "<u8"), ("val", "<u2")], align=False))
+        key64 = rec["key"].astype(np.uint64)
+        counts = rec["val"].astype(np.uint32)
+        order = np.argsort(key64, kind="stable")
+        key64, counts = key64[order], counts[order]
+        W = num_words(k)
+        keys = np.zeros((len(key64), W), dtype=np.uint32)
+        if W == 1:
+            keys[:, 0] = key64.astype(np.uint32)
+        else:
+            keys[:, 0] = (key64 >> np.uint64(32)).astype(np.uint32)
+            keys[:, 1] = (key64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        return k, keys, counts

@@ -10,6 +10,9 @@ numpy only, so the JAX package and the port can be fed identical files.
   substitutions at `het_rate` (every mutated base changes, the model of
   tests/simdata.py:mutate), reads drawn from each haplotype as above; it
   makes the bubbles that `assemble -u` crushes.
+- ``ungap_edge_inputs``: inputs of the ungap_align kernel that reach its
+  edge cases (reads shorter than a seed, N codes, slots at contig ends in
+  both orientations, duplicate slots across seeds, tied maxima).
 """
 
 from __future__ import annotations
@@ -63,3 +66,67 @@ def simulate_two_haplotypes(path: str, genome_size: int, het_rate: float,
     r2 = _sample_reads(rng, h2, read_len, coverage_each, error)
     _write_fasta(path, np.concatenate([r1, r2]))
     return (_BASES[h1].tobytes().decode(), _BASES[h2].tobytes().decode())
+
+
+def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,
+                      S: int = 5, H: int = 16, min_identity: float = 0.9):
+    """numpy inputs of models/mapper.py:ungap_align, in its argument order:
+    (codes (R, L) u8, lengths (R,) i32, pool (cap,) u8, starts (C+1,) i32,
+    ok, is_fwd (R, S, H) bool, cid, ro, clen (R, S, H) i32, min_identity).
+
+    Contig 1 repeats contig 0, so a slot on each at the same offset ties.
+    Each read is cut from a contig at an offset that may overhang either
+    end, in either orientation, with substitutions and Ns; its slots hold
+    the true placement, near misses, copies of earlier slots (duplicates
+    across seeds) and random placements, some of them not ok."""
+    rng = np.random.default_rng(seed)
+    clens = rng.integers(40, 400, size=8)
+    clens[1] = clens[0]
+    contigs = [rng.integers(0, 4, size=int(n), dtype=np.uint8) for n in clens]
+    contigs[1] = contigs[0].copy()
+    contigs[3][rng.random(clens[3]) < 0.05] = 4
+    starts = np.zeros(len(contigs) + 1, np.int32)
+    np.cumsum(clens, out=starts[1:])
+    cap = 64
+    while cap < starts[-1]:
+        cap <<= 1
+    pool = np.full(cap, 4, np.uint8)
+    pool[: starts[-1]] = np.concatenate(contigs)
+
+    R, L = n_reads, width
+    codes = np.full((R, L), 4, np.uint8)
+    lengths = rng.integers(1, L + 1, size=R).astype(np.int32)
+    lengths[rng.random(R) < 0.5] = L
+    shape = (R, S, H)
+    ok = rng.random(shape) < 0.15
+    is_fwd = rng.random(shape) < 0.5
+    cid = rng.integers(0, len(contigs), size=shape).astype(np.int32)
+    ro = np.zeros(shape, np.int32)
+    for r in range(R):
+        c = int(rng.integers(0, len(contigs)))
+        fwd = bool(rng.random() < 0.5)
+        n = int(clens[c])
+        o = int(rng.integers(-L // 2, n + L // 2))
+        p = np.arange(L)
+        coord = o + p if fwd else o - p
+        inside = (coord >= 0) & (coord < n)
+        base = rng.integers(0, 4, size=L).astype(np.uint8)
+        cb = contigs[c][np.clip(coord, 0, n - 1)]
+        base[inside] = cb[inside] if fwd else 3 ^ np.minimum(cb[inside], 3)
+        sub = rng.random(L) < 0.03
+        base[sub] = (base[sub] + 1) % 4
+        base[rng.random(L) < 0.01] = 4
+        codes[r, : lengths[r]] = base[: lengths[r]]
+        ro[r] = o + rng.integers(-40, 41, size=(S, H))
+        is_fwd[r, 0, 0], cid[r, 0, 0], ro[r, 0, 0], ok[r, 0, 0] = fwd, c, o, True
+        if rng.random() < 0.3:             # the same alignment from a later seed
+            s2, h2 = int(rng.integers(1, S)), int(rng.integers(0, H))
+            is_fwd[r, s2, h2], cid[r, s2, h2], ro[r, s2, h2] = fwd, c, o
+            ok[r, s2, h2] = True
+        if c in (0, 1) and rng.random() < 0.5:   # a tie on the twin contig
+            s2, h2 = int(rng.integers(0, S)), int(rng.integers(1, H))
+            is_fwd[r, s2, h2], cid[r, s2, h2], ro[r, s2, h2] = fwd, 1 - c, o
+            ok[r, s2, h2] = True
+    clen = clens[cid].astype(np.int32)
+    return (codes, lengths, pool, starts, ok, is_fwd, cid, ro, clen,
+            float(min_identity))

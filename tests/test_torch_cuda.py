@@ -15,8 +15,10 @@ import torch
 import simdata
 from platanus_b_tpu_torch import kernels
 from platanus_b_tpu_torch.commands.main import main as port_main
+from platanus_b_tpu_torch.models import mapper as tmapper
 from platanus_b_tpu_torch.ops import align as talign
 from platanus_b_tpu_torch.ops import kmer as tkmer
+from platanus_b_tpu_torch.simulate import ungap_edge_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -43,7 +45,8 @@ def _mutate(rng, s, n_sub, n_ins, n_del):
 
 def test_kernels_build(dev):
     kernels.library()
-    assert kernels.BUILD_INFO["path"].endswith(".so")
+    assert len(kernels.BUILD_INFO["paths"]) == 3
+    assert all(p.endswith(".so") for p in kernels.BUILD_INFO["paths"])
 
 
 @pytest.mark.parametrize("k", [25, 32, 48, 95])
@@ -61,6 +64,37 @@ def test_kmer_extract_kernel_matches_plain(dev, k):
         want = tkmer.extract_kmers_packed_plain(words, k, nmask=nmask,
                                                 max_len=L, forward_only=fwd)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_kmer_extract_all_ones_key_odd_words(dev):
+    """A valid all-ones forward key (poly-T at k = 16, 48) has INT64_MAX
+    lanes, like the plain version's words_to_lanes."""
+    codes = np.full((2, 64), 3, np.uint8)
+    codes[1, 20] = 4
+    words, nmask = tkmer.pack_codes(torch.from_numpy(codes).to(dev))
+    for k in (16, 48):
+        got = tkmer.extract_kmers_packed(words, k, nmask=nmask, max_len=64,
+                                         forward_only=True)
+        want = tkmer.extract_kmers_packed_plain(words, k, nmask=nmask,
+                                                max_len=64, forward_only=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("seed,width,min_identity",
+                         [(1, 100, 0.0), (2, 100, 0.97), (3, 150, 0.9),
+                          (4, 300, 0.5), (5, 600, 0.9)])
+def test_ungap_align_kernel_matches_plain(dev, seed, width, min_identity):
+    """Edge sets: short reads, Ns, contig ends both ways, duplicate slots,
+    tied maxima; widths for each register layout and the global one."""
+    arrs = ungap_edge_inputs(seed, width=width, min_identity=min_identity)
+    args = [torch.from_numpy(a).to(dev) for a in arrs[:-1]] + [arrs[-1]]
+    before = kernels.LAUNCHES["ungap_align"]
+    got = tmapper.ungap_align(*args)
+    assert kernels.LAUNCHES["ungap_align"] == before + 1
+    want = tmapper.ungap_align_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0 < int((got[0] != 0).sum()) < len(got[0])
 
 
 @pytest.mark.parametrize("band", [128, 640, 20000])
@@ -99,7 +133,39 @@ def test_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
     before = dict(kernels.LAUNCHES)
     assert port_main(["assemble", "-f", str(reads), "-o",
                       str(tmp_path / "gpu")] + flags) == 0
-    assert all(kernels.LAUNCHES[n] > before[n] for n in before)
+    for name in ("edit_distance", "kmer_extract"):
+        assert kernels.LAUNCHES[name] > before[name], name
     for name in ("contig.fa", "contigBubble.fa", "25merFrq.tsv"):
         assert ((tmp_path / f"gpu_{name}").read_bytes()
                 == (tmp_path / f"cpu_{name}").read_bytes()), name
+
+
+def test_polish_on_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
+    """`polish` on the card equals the CPU run, with the plain scoring and
+    extraction patched to raise."""
+    rng = np.random.default_rng(11)
+    genome = simdata.random_genome(rng, 5000)
+    fwd, rev = simdata.paired_reads(rng, genome, 100, 400, 30, 30.0,
+                                    error_rate=0.01)
+    simdata.write_fasta(tmp_path / "r1.fa", fwd)
+    simdata.write_fasta(tmp_path / "r2.fa", rev)
+    contig = genome[:2400] + simdata.random_genome(rng, 300) + genome[2400:]
+    (tmp_path / "c.fa").write_text(
+        f">seq1_len{len(contig)}_cov30_read100_maxK50\n{contig}\n")
+    monkeypatch.chdir(tmp_path)
+    argv = ["polish", "-c", "c.fa", "-IP1", "r1.fa", "r2.fa", "-o"]
+    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cpu")
+    assert port_main(argv + ["cpu"]) == 0
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    monkeypatch.setattr(tmapper, "ungap_align_plain", no_plain)
+    monkeypatch.setattr(tkmer, "extract_kmers_packed_plain", no_plain)
+    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cuda")
+    before = dict(kernels.LAUNCHES)
+    assert port_main(argv + ["gpu"]) == 0
+    for name in ("kmer_extract", "ungap_align"):
+        assert kernels.LAUNCHES[name] > before[name]
+    assert ((tmp_path / "gpu_polished_c.fa").read_bytes()
+            == (tmp_path / "cpu_polished_c.fa").read_bytes())

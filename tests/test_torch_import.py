@@ -67,6 +67,33 @@ def test_cli_help_without_jax():
     assert "-kmer_occ_only" in res.stdout and res.stdout.strip().endswith("ok")
 
 
+def test_round_commands_without_jax():
+    """Every ported command's --help, and `gap_close -eo 2` (which needs
+    the unported models/hetero.py) stopping with a typed ArgError, all in
+    one interpreter that never loads jax."""
+    code = ("import contextlib, io, sys\n"
+            "from platanus_b_tpu_torch.commands.main import COMMANDS, main\n"
+            "assert set(COMMANDS) == {'assemble', 'gap_close', 'kmer_divide',"
+            " 'merge', 'polish'}\n"
+            "for cmd in COMMANDS:\n"
+            "    out = io.StringIO()\n"
+            "    with contextlib.redirect_stdout(out):\n"
+            "        try:\n"
+            "            main([cmd, '--help'])\n"
+            "        except SystemExit as e:\n"
+            "            assert e.code in (0, None), (cmd, e.code)\n"
+            "    assert '-o' in out.getvalue(), cmd\n"
+            "rc = main(['gap_close', '-c', 'x.fa', '-IP1', 'a.fa', 'b.fa',"
+            " '-eo', '2'])\n"
+            "assert rc == 5, rc\n"
+            "assert 'jax' not in sys.modules\n"
+            "print('ok')\n")
+    res = _run(code, {"PLATANUS_B_TPU_TORCH_DEVICE": "cpu"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    assert "ERROR(5)" in res.stderr and "-eo" in res.stderr
+
+
 def test_no_port_module_names_jax():
     for path in _sources():
         text = path.read_text()

@@ -136,19 +136,27 @@ def test_count_matches_jax(k):
     assert (tl == jl).all()
     assert (tcontains(tk, tkeys.keys_from_words(q)).numpy()
             == np.asarray(jcontains(jnp.asarray(jk), jnp.asarray(q), len(jk)))).all()
-    # [lo, hi) runs of a table with duplicate rows
+    # [lo, hi) runs of a table with duplicate rows, searched as the JAX
+    # package searches a table of its own length (no padding row), table
+    # end included; the queries hold the last row, keys past it and the
+    # all-ones SENTINEL key
     dup = np.repeat(jk, 1 + np.arange(len(jk)) % 3, axis=0)   # still sorted
+    q = np.concatenate([q, dup[-1:], np.full((1, q.shape[1]), 0xFFFFFFFF,
+                                             np.uint32)])
     tlo, thi = tlookup_range(tkeys.keys_from_words(dup), tkeys.keys_from_words(q))
-    # where a bound is len(table) the JAX search steps one past it, so the
-    # two are compared where the bound lies inside the table
-    last = tuple(dup[-1])
-    end_lo = np.array([tuple(x) > last for x in q])
-    end_hi = np.array([tuple(x) >= last for x in q])
-    assert (tlo.numpy()[end_lo] == len(dup)).all()
-    assert (thi.numpy()[end_hi] == len(dup)).all()
     jlo, jhi = jlookup_range(jnp.asarray(dup), jnp.asarray(q), jnp.int32(len(dup)))
-    assert (tlo.numpy()[~end_lo] == np.asarray(jlo)[~end_lo]).all()
-    assert (thi.numpy()[~end_hi] == np.asarray(jhi)[~end_hi]).all()
+    assert (tlo.numpy() == np.asarray(jlo)).all()
+    assert (thi.numpy() == np.asarray(jhi)).all()
+    assert (thi.numpy() == len(dup) + 1).any()        # the end case occurs
+    # the same table padded with SENTINEL rows to a power of two
+    cap = 1 << len(dup).bit_length()
+    pad = np.full((cap, dup.shape[1]), 0xFFFFFFFF, np.uint32)
+    pad[: len(dup)] = dup
+    tlo, thi = tlookup_range(tkeys.keys_from_words(pad), tkeys.keys_from_words(q),
+                             len(dup))
+    jlo, jhi = jlookup_range(jnp.asarray(pad), jnp.asarray(q), jnp.int32(len(dup)))
+    assert (tlo.numpy() == np.asarray(jlo)).all()
+    assert (thi.numpy() == np.asarray(jhi)).all()
 
 
 def test_count_saturates_at_max_occurrence():
