@@ -24,9 +24,16 @@ Phases, one JSON line each; any failure exits non-zero:
    scaffold with 1,000 gaps, 240,240 read pairs, made with tests/simdata.py);
    every output file must hash to smoke_expected.json, and kmer_extract
    and ungap_align must have run; then the round once more under
-   torch.profiler for the card's busy share of each command.
+   torch.profiler for the card's busy share of each command;
+6. a whole `iterate -i 1` through the port's CLI (count, kmer_divide,
+   solve_dbg -unphase, polish, gap_close, final divide, final polish) on
+   phase 5's reads and its scaffold split at the gaps into 1,001 contigs;
+   every file it writes must hash to smoke_expected.json, kmer_extract and
+   ungap_align must have run, and the scaffolder must have joined contigs;
+   then its solve_dbg stage once more under torch.profiler for the card's
+   busy share.
 
-Each of phases 3-5 sets the launch counts to 0 just before it and reads
+Each of phases 3-6 sets the launch counts to 0 just before it and reads
 them just after. Then a {"kernels": [...]} line, the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Without a CUDA card it exits
 1 and prints no result. Working files go under
@@ -67,6 +74,12 @@ ROUND_STEPS = [
     ["merge", "-f", "round_gapClosed_polished_scaffold.fa",
      "round_extraContig.fa", "-k", "1.0", "-l", "1.0", "-o", "round"],
 ]
+
+# phase 6: a whole `iterate -i 1` (iterate_cmd.py:88-163) on phase 5's reads
+# and its scaffold split at the gaps into contigs, from the work directory
+ITERATE_INPUTS = ("contigs.fa", "r1.fa", "r2.fa")
+ITERATE_ARGV = ["iterate", "-i", "1", "-o", "it", "-c", "contigs.fa", "-IP1",
+                "r1.fa", "r2.fa"]
 
 
 def emit(obj: dict) -> None:
@@ -201,6 +214,63 @@ def round_hashes(work: str) -> dict:
     """sha256 of every file the round wrote."""
     return {name: file_sha256(os.path.join(work, name))
             for name in sorted(os.listdir(work)) if name not in ROUND_INPUTS}
+
+
+# ---------------------------------------------------------------------------
+# phase 6 helpers (also used by tests/torch_smoke_expected.py)
+# ---------------------------------------------------------------------------
+
+def make_iterate_contigs(data: str, ds: dict) -> str:
+    """Phase 5's scaffold.fa split at its N runs into ITERATE_INPUTS'
+    contigs.fa (headers seq{i}_len{L}_cov40_read{read_len}_maxK62), the
+    shape of a fragmented short-read assembly; returns its sha256."""
+    scaffold = read_fasta(os.path.join(data, "scaffold.fa"))[0]
+    parts = [p for p in scaffold.split("N") if p]
+    path = os.path.join(data, "contigs.fa")
+    with open(path, "w") as f:
+        for i, p in enumerate(parts, start=1):
+            f.write(f">seq{i}_len{len(p)}_cov40_read{ds['read_len']}"
+                    f"_maxK62\n")
+            for j in range(0, len(p), 80):
+                f.write(p[j: j + 80] + "\n")
+    return file_sha256(path)
+
+
+def run_iterate(work: str, data: str, cli_main) -> float:
+    """ITERATE_ARGV through `cli_main` from `work`, the inputs copied
+    there; returns its wall (s)."""
+    os.makedirs(work, exist_ok=True)
+    for name in ITERATE_INPUTS:
+        shutil.copy(os.path.join(data, name), os.path.join(work, name))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(list(ITERATE_ARGV))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(ITERATE_ARGV)} exited {rc}")
+    finally:
+        os.chdir(cwd)
+    return wall
+
+
+def iterate_hashes(work: str) -> dict:
+    """sha256 of every file `iterate` wrote: the final assembly and each
+    file under its intermediate-results directory, by relative path."""
+    out = {"it_iterativeAssembly.fa":
+           file_sha256(os.path.join(work, "it_iterativeAssembly.fa"))}
+    inter = os.path.join(work, "it_iterateIntermediateResults")
+    for root, _dirs, files in os.walk(inter):
+        for name in files:
+            path = os.path.join(root, name)
+            out[os.path.relpath(path, work)] = file_sha256(path)
+    return dict(sorted(out.items()))
+
+
+def fasta_count(path: str) -> int:
+    with open(path) as f:
+        return sum(1 for line in f if line.startswith(">"))
 
 
 # ---------------------------------------------------------------------------
@@ -669,6 +739,67 @@ def main() -> int:
         rec["device_idle_share"] = max(
             0.0, 1.0 - rec["device_busy_ms"] / (1000.0 * walls[name]))
     emit({"phase": "round_profiled", "ok": True, "steps": steps})
+
+    # ---- phase 6: a whole `iterate -i 1`
+    PHASE["name"] = "iterate"
+    iexp = exp.get("iterate")
+    check(iexp is not None, "smoke_expected.json has no iterate record")
+    contigs_sha = make_iterate_contigs(round_data, ROUND_DATASET)
+    check(ROUND_DATASET == iexp["dataset"]
+          and contigs_sha == iexp["contigs_sha256"]
+          and ITERATE_ARGV == iexp["argv"],
+          "the iterate input differs from the one smoke_expected.json was "
+          "made from")
+    it_work = os.path.join(work, "iterate")
+    shutil.rmtree(it_work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    reset_launches()
+    steps = {}
+    run_iterate(it_work, round_data, lambda argv: run_cli(argv, steps))
+    launches["iterate"] = dict(kernels.LAUNCHES)
+    hashes = iterate_hashes(it_work)
+    it1 = os.path.join(it_work, "it_iterateIntermediateResults", "it1")
+    n_div = fasta_count(os.path.join(it1, "it_kmerDivided.fa"))
+    n_cons = fasta_count(os.path.join(it1, "it_consensusScaffold.fa"))
+    rec = steps["iterate"]
+    stage_walls = {k[len("iterate: "):]: v for k, v in rec["stage_s"].items()
+                   if k.startswith("iterate: ")}
+    ok = hashes == iexp["sha256"]
+    emit({"phase": "iterate", "ok": ok, "wall_s": rec["wall_s"],
+          "stage_walls_s": stage_walls, "peak_device_gib":
+          rec["peak_device_gib"], "launches": launches["iterate"],
+          "num_kmer_divided": n_div, "num_consensus_scaffolds": n_cons,
+          "sha256": hashes, "expected_sha256": iexp["sha256"],
+          "jax_cpu_wall_s": iexp.get("jax_cpu_wall_s")})
+    check(ok, "iterate outputs differ from smoke_expected.json")
+    for name in ("kmer_extract", "ungap_align"):
+        check(launches["iterate"][name] > 0,
+              f"{name} never launched in iterate")
+    check(n_cons < n_div, "solve_dbg joined no contigs")
+    # its solve_dbg -unphase stage once more under torch.profiler, on the
+    # same input: the card's idle share against the stage's wall above
+    stage = "solve_dbg -unphase (round 1)"
+    os.makedirs(os.path.join(it_work, "prof"), exist_ok=True)
+    prof_steps = {}
+    cwd = os.getcwd()
+    os.chdir(it_work)
+    try:
+        run_cli(["solve_dbg", "-unphase", "-reduce_redundancy", "-c",
+                 "it_iterateIntermediateResults/it1/it_kmerDivided.fa",
+                 "-u", "0.0", "-o", "prof/it", "-IP1", "r1.fa", "r2.fa"],
+                prof_steps, profile=True)
+    finally:
+        os.chdir(cwd)
+    check(file_sha256(os.path.join(it_work, "prof", "it_consensusScaffold.fa"))
+          == iexp["sha256"]["it_iterateIntermediateResults/it1/"
+                            "it_consensusScaffold.fa"],
+          "profiled solve_dbg output differs from smoke_expected.json")
+    prec = prof_steps["solve_dbg"]
+    prec["unprofiled_wall_s"] = stage_walls[stage]
+    prec["device_idle_share"] = max(
+        0.0, 1.0 - prec["device_busy_ms"] / (1000.0 * stage_walls[stage]))
+    emit({"phase": "iterate_profiled", "ok": True, "stage": stage,
+          "solve_dbg": prec})
 
     PHASE["name"] = "summary"
     for name, entry in kern.items():

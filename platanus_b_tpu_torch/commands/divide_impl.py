@@ -1,0 +1,153 @@
+"""`solve_dbg -divide_only` / `divide`: break scaffolds at unsupported bases.
+
+The reference's divideErroneousNodeBaseLevel (pairedDBG.cpp:6480-7294)
+computes base-level physical/link coverage tracks from PE mappings and
+breaks nodes at evidence gaps. Round-1 re-design (documented): a scaffold
+position is supported when a properly-oriented same-scaffold pair whose
+insert is within tolerance spans it; interior runs of zero physical
+coverage become break points. This captures the dominant behavior
+(chimera junctions have no spanning pairs) without the reference's full
+multi-track machinery.
+
+Port copy of platanus_b_tpu/commands/divide_impl.py: the reference's text
+over the port's mapper. One adaptation: the contig index lies on the
+device of select_device(), passed down as divide_scaffolds' `device`.
+"""
+
+from __future__ import annotations
+
+
+import numpy as np
+
+from platanus_b_tpu.io import fasta as fa
+
+from ..device import select_device
+from ..models import seqlib
+from ..models.mapper import ContigIndex, map_reads
+from ..utils.log import LOG
+
+SD_SPAN_TOLERANCE = 3
+
+
+def physical_coverage(scaffolds, fid, foff, rid, roff, flen, rlen,
+                      avg_ins: int, sd_ins: int):
+    """Per-base spanning-fragment coverage via difference arrays."""
+    cov = [np.zeros(len(s) + 1, dtype=np.int64) for s in scaffolds]
+    same = (fid != 0) & (fid == -rid)
+    tol = SD_SPAN_TOLERANCE * sd_ins
+    for k in np.nonzero(same)[0]:
+        if fid[k] > 0:
+            sid, st, ed = fid[k], foff[k], roff[k] + 1
+        else:
+            sid, st, ed = rid[k], roff[k], foff[k] + 1
+        if sid <= 0:
+            continue
+        ins = ed - st
+        if ins < max(flen[k], rlen[k]) or abs(ins - avg_ins) > tol:
+            continue
+        s = cov[sid - 1]
+        st = max(int(st), 0)
+        ed = min(int(ed), len(s) - 1)
+        if ed > st:
+            s[st] += 1
+            s[ed] -= 1
+    return [np.cumsum(c[:-1]) for c in cov]
+
+
+def divide_scaffolds(scaffolds, libs, seed_lengths=(32,), min_len: int = 100,
+                     device="cpu"):
+    """Returns list of (scaffold_index, start, end) kept pieces."""
+    index = ContigIndex(scaffolds, key_length=32, device=device)
+    total = [np.zeros(len(s), dtype=np.int64) for s in scaffolds]
+    read_len = 100
+    for li, lib in enumerate(libs):
+        LOG.info(f"[LIBRARY {li + 1}]")
+        fid, foff = map_reads(index, lib.fwd_codes, lib.fwd_lengths,
+                              tuple(seed_lengths))
+        rid, roff = map_reads(index, lib.rev_codes, lib.rev_lengths,
+                              tuple(seed_lengths))
+        same = (fid != 0) & (fid == -rid)
+        ins = np.where(fid > 0, roff - foff + 1, foff - roff + 1)
+        keep = same & (ins >= np.minimum(lib.fwd_lengths, lib.rev_lengths))
+        if keep.any():
+            dist = seqlib.insert_distribution(ins[keep])
+            avg, sd = seqlib.estimate_ins_size(dist)
+            lib.average_insert, lib.sd_insert = avg, sd
+        pc = physical_coverage(scaffolds, fid, foff, rid, roff,
+                               lib.fwd_lengths, lib.rev_lengths,
+                               int(lib.average_insert), int(lib.sd_insert))
+        for t, p in zip(total, pc):
+            t += p
+        read_len = max(read_len, int(lib.average_length or 100))
+
+    pieces = []
+    n_break = 0
+    for si, s in enumerate(scaffolds):
+        t = total[si]
+        # edges never have spanning pairs; only interior gaps break
+        edge = min(int(libs[0].average_insert) if libs else 500, len(s) // 2)
+        interior = t[edge: len(s) - edge]
+        zero = np.zeros(len(s), dtype=bool)
+        zero[edge: len(s) - edge] = interior == 0
+        # gap bases (N) have no signal requirement
+        zero &= s != 4
+        if not zero.any():
+            pieces.append((si, 0, len(s)))
+            continue
+        d = np.diff(zero.astype(np.int8))
+        bstarts = list(np.nonzero(d == 1)[0] + 1)
+        bends = list(np.nonzero(d == -1)[0] + 1)
+        if zero[0]:
+            bstarts.insert(0, 0)
+        if zero[-1]:
+            bends.append(len(s))
+        pos = 0
+        for bs, be in zip(bstarts, bends):
+            mid = (bs + be) // 2
+            if mid - pos >= min_len:
+                pieces.append((si, pos, mid))
+                n_break += 1
+            pos = mid
+        if len(s) - pos >= min_len:
+            pieces.append((si, pos, len(s)))
+    LOG.counter("NUM_DIVISIONS", n_break)
+    return pieces
+
+
+def run_divide_only(args) -> int:
+    from .libparse import load_libraries
+    from .solve_dbg_cmd import load_contigs
+
+    names, seqs, covs, read_len, max_k = load_contigs(args.c)
+    libs = load_libraries(getattr(args, "libspecs", []))
+    if not libs:
+        # no evidence: pass-through division (keep everything)
+        pieces = [(i, 0, len(s)) for i, s in enumerate(seqs)]
+    else:
+        device = select_device()
+        LOG.info(f"device: {device}")
+        pieces = divide_scaffolds(seqs, libs, seed_lengths=tuple(args.s),
+                                  min_len=max_k, device=device)
+    recs = []
+    comps = []
+    out_i = 0
+    for si, st, ed in pieces:
+        seq = seqs[si][st:ed]
+        # trim edge Ns like loadDividedContigResultSeq (pairedDBG.cpp:2252-2262)
+        nz = np.nonzero(seq != 4)[0]
+        if len(nz) == 0:
+            continue
+        seq = seq[nz[0]: nz[-1] + 1]
+        if len(seq) < max_k:
+            continue
+        out_i += 1
+        name = (f"seq{out_i}_len{len(seq)}_cov{int(covs[si])}"
+                f"_read{read_len}_maxK{max_k}")
+        recs.append((name, fa.codes_to_seq(seq)))
+        comps.append(f"{name}\t0\t{len(seq)}\t{names[si]}:{st}-{ed}\t0\t+\n")
+    fa.write_fasta(f"{args.o}_divided.fa", recs)
+    with open(f"{args.o}_dividedComponent.bed", "w") as f:
+        f.writelines(comps)
+    LOG.counter("NUM_OUTPUT_SEQ", len(recs))
+    LOG.info("solve_DBG completed!")
+    return 0

@@ -8,10 +8,9 @@ PREFIX_gapClosed_<input>. `-extend` and `_extraContig.fa` local assembly
 are deferred (documented).
 
 Counterpart of platanus_b_tpu/commands/gap_close_cmd.py: the per-gap local
-assemblies are the JAX package's host module models/gap_close.py, imported
-as it is; the read mapping is the port's. `-eo >= 2` needs the banded
-aligner of models/hetero.py, which is not ported yet, and stops with an
-ArgError (exit 5).
+assemblies are the port's copy of the host module models/gap_close.py
+(whose `-eo >= 2` OLC path reaches the port's models/hetero.py); the read
+mapping is the port's.
 """
 
 from __future__ import annotations
@@ -21,10 +20,10 @@ import os
 import numpy as np
 
 from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.models import gap_close as gc
 from platanus_b_tpu.utils.errors import ArgError, IOError_
 
 from ..device import select_device
+from ..models import gap_close as gc
 from ..models import seqlib
 from ..models.mapper import ContigIndex, map_reads
 from ..utils.log import LOG
@@ -191,9 +190,6 @@ def run(args) -> int:
         raise ArgError("gap_close: not specified contig (scaffold) file!! (-c)")
     if not getattr(args, "libspecs", []) and not args.f:
         raise ArgError("gap_close: not specified read file!!")
-    if args.eo >= 2:
-        raise ArgError("gap_close: -eo >= 2 is not ported yet (it needs the "
-                       "banded aligner of models/hetero.py)")
 
     from .libparse import load_libraries
 

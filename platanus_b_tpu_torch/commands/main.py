@@ -18,7 +18,8 @@ from platanus_b_tpu.utils.errors import ArgError, PlatanusError
 from .. import REFERENCE_VERSION, __version__
 from ..utils.log import LOG
 
-COMMANDS = ("assemble", "gap_close", "kmer_divide", "merge", "polish")
+COMMANDS = ("assemble", "scaffold", "solve_dbg", "gap_close", "polish",
+            "merge", "kmer_divide", "iterate", "divide", "consensus", "phase")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,13 +29,18 @@ def build_parser() -> argparse.ArgumentParser:
                      f"port of platanus_b_tpu (Platanus_B v{REFERENCE_VERSION} "
                      f"capabilities); commands: {', '.join(COMMANDS)}"))
     sub = parser.add_subparsers(dest="command", required=True)
-    from . import (assemble_cmd, gap_close_cmd, kmer_divide_cmd, merge_cmd,
-                   polish_cmd)
+    from . import (assemble_cmd, gap_close_cmd, iterate_cmd, kmer_divide_cmd,
+                   merge_cmd, orchestrators, polish_cmd, scaffold_cmd,
+                   solve_dbg_cmd)
     assemble_cmd.add_parser(sub)
+    scaffold_cmd.add_parser(sub)
+    solve_dbg_cmd.add_parser(sub)
     gap_close_cmd.add_parser(sub)
     polish_cmd.add_parser(sub)
     merge_cmd.add_parser(sub)
     kmer_divide_cmd.add_parser(sub)
+    iterate_cmd.add_parser(sub)
+    orchestrators.add_parsers(sub)
     return parser
 
 

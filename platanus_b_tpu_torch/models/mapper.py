@@ -8,6 +8,8 @@ platanus_b_tpu/models/mapper.py).
   of the candidate search read the same cells as the reference.
 - ``map_reads``: seeds from the read tail, fwd + rev key lookup, exact
   extension, unique-extension filter, modal vote (mapper.cpp:321-410).
+- ``map_reads_multi``: every extended candidate position of the same
+  search, deduplicated (mapper.cpp:415-536), for tagged libraries.
 - ``map_reads_ungap``: the same candidates scored by a full-overlap
   ungapped alignment (mapper.cpp:537-682), for polish. The scoring runs in
   the hand-written CUDA kernel ``ungap_align`` (csrc/ungap_align.cu) on
@@ -275,6 +277,69 @@ def map_reads(index: ContigIndex, codes, lengths,
         ids[take], offs[take] = i[take], o[take]
         todo &= ~take
     return ids, offs
+
+
+def _map_chunk_multi(index: ContigIndex, codes, lengths, word_len: int,
+                     S: int, H: int):
+    """_map_kernel_multi (mapper.py:225-243): every extended candidate
+    position, no unique-extension or vote filter; (R, S*H) int32 ids and
+    offsets, 0 = empty slot."""
+    R = codes.shape[0]
+    c = _candidates(index, codes, lengths, word_len, S, H)
+    if c is None:
+        z = torch.zeros((R, S * H), dtype=torch.int32, device=codes.device)
+        return z, z
+    ok, is_fwd, cid, i_s = c["ok"], c["is_fwd"], c["cid"], c["i_s"][..., None]
+    rep_id = torch.where(ok, torch.where(is_fwd, cid + 1, -(cid + 1)), 0)
+    rep_off = torch.where(is_fwd, c["offset"] - i_s,
+                          c["offset"] + i_s + index.key_length - 1)
+    rep_off = torch.where(ok, rep_off, 0)
+    return (rep_id.reshape(R, -1).to(torch.int32),
+            rep_off.reshape(R, -1).to(torch.int32))
+
+
+def map_reads_multi(index: ContigIndex, codes, lengths,
+                    seed_lengths: list[int] | tuple[int, ...] = (32,),
+                    max_candidates: int = MAX_CANDIDATES):
+    """All distinct mapped positions per read (multi-report,
+    mapReadMultiReportsMultiSeedFiltered, mapper.cpp:506-536).
+
+    Returns (read_idx, ids, offs) flat numpy arrays, one row per distinct
+    (read, signed contig id, offset) report in the reference's order;
+    seed lengths fall through for reads with zero reports."""
+    codes, lengths = _as_device(codes, lengths, index.device)
+    R, L = codes.shape
+    rows_out = []
+    todo = np.ones((R,), bool)
+    for word_len in seed_lengths:
+        word_len = int(word_len)
+        if not todo.any() or L < word_len:
+            break
+        S = max(-(-L // word_len) + 1, 1)
+        parts = [_map_chunk_multi(index, codes[r0: r0 + READ_CHUNK],
+                                  lengths[r0: r0 + READ_CHUNK], word_len, S,
+                                  max_candidates)
+                 for r0 in range(0, R, READ_CHUNK)]
+        vid = torch.cat([p[0] for p in parts]).cpu().numpy()
+        voff = torch.cat([p[1] for p in parts]).cpu().numpy()
+        ridx = np.repeat(np.arange(R), vid.shape[1])
+        flat_id = vid.reshape(-1)
+        flat_off = voff.reshape(-1)
+        keep = (flat_id != 0) & todo[ridx]
+        if keep.any():
+            rec = np.stack([ridx[keep], flat_id[keep], flat_off[keep]],
+                           axis=1)
+            rec = np.unique(rec, axis=0)
+            rows_out.append(rec)
+            todo[np.unique(rec[:, 0])] = False
+    if not rows_out:
+        z = np.zeros(0, np.int64)
+        return z, z.astype(np.int32), z.astype(np.int32)
+    rec = np.concatenate(rows_out, axis=0)
+    order = np.lexsort((rec[:, 2], rec[:, 1], rec[:, 0]))
+    rec = rec[order]
+    return (rec[:, 0].astype(np.int64), rec[:, 1].astype(np.int32),
+            rec[:, 2].astype(np.int32))
 
 
 # ---------------------------------------------------------------------------

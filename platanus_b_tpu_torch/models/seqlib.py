@@ -1,10 +1,10 @@
-"""Read libraries: pair mapping products + insert-size statistics
-(counterpart of platanus_b_tpu/models/seqlib.py:1-285).
+"""Read libraries: pair mapping products, insert-size statistics and
+tagged (10x) libraries (counterpart of platanus_b_tpu/models/seqlib.py).
 
 Replaces SeqLib (seqlib.h:31-145, seqlib.cpp) and the pair-mapping batch
-drivers (mapper.cpp:689-786 mapPairMT, :1265 gatherPairReadMappedSameContig).
-The host numpy code is the JAX package's, unchanged; only the mapper is the
-port's. Tagged (10x) libraries are not ported yet.
+drivers (mapper.cpp:689-786 mapPairMT, :1265 gatherPairReadMappedSameContig,
+:789 mapTagPairMT). The host numpy code is the JAX package's, unchanged;
+only the mapper is the port's.
 """
 
 from __future__ import annotations
@@ -282,3 +282,138 @@ def write_insert_freq_tsv(path: str, insert_lengths: np.ndarray) -> None:
     with open(path, "w") as f:
         for i in range(1, len(dist)):
             f.write(f"{i}\t{int(dist[i])}\n")
+
+# ----------------------------------------------------------------------
+# tagged (10x Genomics linked-read) libraries
+# ----------------------------------------------------------------------
+
+TAG_START_STRING = "BX:Z:"  # tagPositionInline (seqlib.cpp:~960)
+
+
+@dataclass
+class TagLibrary:
+    """One 10x linked-read library (-x interleaved / -X fwd+rev files).
+
+    tags[i] is the integer barcode id of pair i (0 = untagged); the string
+    -> int mapping mirrors setTagStringConverter (seqlib.cpp:984-1048),
+    which assigns ranks over the sorted barcode-string set.
+    """
+
+    fwd_codes: np.ndarray
+    fwd_lengths: np.ndarray
+    rev_codes: np.ndarray
+    rev_lengths: np.ndarray
+    tags: np.ndarray
+    num_tags: int = 0
+
+    @property
+    def num_pairs(self) -> int:
+        return len(self.fwd_lengths)
+
+
+def extract_tag(header: str) -> str:
+    """BX:Z:<alnum> barcode from a full header line (tagPositionInline)."""
+    pos = header.find(TAG_START_STRING)
+    if pos < 0:
+        return ""
+    pos += len(TAG_START_STRING)
+    end = pos
+    while end < len(header) and header[end].isalnum():
+        end += 1
+    return header[pos:end]
+
+
+def _iter_reads_full_header(path: str):
+    """(full header line, sequence) records; FASTA or FASTQ, gz/bz2 ok."""
+    from platanus_b_tpu.io.fasta import open_maybe_compressed, sniff_format
+
+    fmt = sniff_format(path)
+    with open_maybe_compressed(path) as f:
+        if fmt == "fasta":
+            name, chunks = None, []
+            for line in f:
+                line = line.rstrip("\n\r")
+                if not line:
+                    continue
+                if line[0] == ">":
+                    if name is not None:
+                        yield name, "".join(chunks)
+                    name, chunks = line[1:], []
+                else:
+                    chunks.append(line)
+            if name is not None:
+                yield name, "".join(chunks)
+        else:
+            while True:
+                h = f.readline()
+                if not h:
+                    break
+                s = f.readline().rstrip("\n\r")
+                f.readline()
+                f.readline()
+                yield h[1:].rstrip("\n\r"), s
+
+
+def load_tag_library(x_files: list[str], xx_files: list[str]) -> TagLibrary:
+    """Load -x (interleaved) and -X (fwd rev pairs) tagged files
+    (solveDBG.cpp:853-895 readLibrary tag branch)."""
+    from platanus_b_tpu.io.fasta import seq_to_codes
+    from platanus_b_tpu.io.reads import pack_reads
+    from platanus_b_tpu.utils.errors import ArgError
+
+    fwd, rev, tag_strings = [], [], []
+    for path in x_files:
+        recs = list(_iter_reads_full_header(path))
+        if len(recs) % 2 != 0:
+            raise ArgError(f"{path}: the number of read is odd in file.")
+        for (h1, s1), (_h2, s2) in zip(recs[0::2], recs[1::2]):
+            fwd.append(seq_to_codes(s1))
+            rev.append(seq_to_codes(s2))
+            tag_strings.append(extract_tag(h1))
+    if len(xx_files) % 2 != 0:
+        raise ArgError("-X: needs fwd/rev file pairs")
+    for f1, f2 in zip(xx_files[0::2], xx_files[1::2]):
+        r1 = list(_iter_reads_full_header(f1))
+        r2 = list(_iter_reads_full_header(f2))
+        if len(r1) != len(r2):
+            raise ArgError(f"{f1}/{f2}: unequal pair counts")
+        for (h1, s1), (_h2, s2) in zip(r1, r2):
+            fwd.append(seq_to_codes(s1))
+            rev.append(seq_to_codes(s2))
+            tag_strings.append(extract_tag(h1))
+
+    # sorted-string rank ids, 1-based; "" (no tag) -> 0
+    uniq = sorted({t for t in tag_strings if t})
+    conv = {t: i + 1 for i, t in enumerate(uniq)}
+    tags = np.array([conv.get(t, 0) for t in tag_strings], dtype=np.int64)
+    fb, rb = pack_reads(fwd), pack_reads(rev)
+    LOG.counter("NUM_TAG", len(uniq))
+    return TagLibrary(fb.codes, fb.lengths, rb.codes, rb.lengths,
+                      tags, num_tags=len(uniq))
+
+
+def count_mapped_tag_for_each_contig(index: ContigIndex, tag_lib: TagLibrary,
+                                     seed_lengths=(32,)):
+    """mapTagPairMT + countMappedTagForEachContig (mapper.cpp:789,
+    scaffoldGraph.cpp:522-591): map both tagged ends onto contigs and count
+    reads per (tag, contig). Returns (tag_ids, contig_indices, counts)."""
+    LOG.info("mapping tagged reads...")
+    # multi-report mapping: a tag counts on EVERY contig its reads touch
+    # (mapTagPairMT uses mapReadMultiReportsMultiSeed, mapper.cpp:1803)
+    from .mapper import map_reads_multi
+    f_ri, fid, _fo = map_reads_multi(index, tag_lib.fwd_codes,
+                                     tag_lib.fwd_lengths, seed_lengths)
+    r_ri, rid, _ro = map_reads_multi(index, tag_lib.rev_codes,
+                                     tag_lib.rev_lengths, seed_lengths)
+    ids = np.concatenate([fid, rid])
+    tags = np.concatenate([tag_lib.tags[f_ri], tag_lib.tags[r_ri]])
+    keep = (ids != 0) & (tags != 0)
+    cidx = np.abs(ids[keep]) - 1
+    tkeep = tags[keep]
+    if len(cidx) == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                np.zeros(0, np.int64))
+    pair = tkeep * index.num_contigs + cidx
+    upair, counts = np.unique(pair, return_counts=True)
+    return (upair // index.num_contigs, upair % index.num_contigs,
+            counts.astype(np.int64))

@@ -169,3 +169,71 @@ def test_polish_on_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
         assert kernels.LAUNCHES[name] > before[name]
     assert ((tmp_path / "gpu_polished_c.fa").read_bytes()
             == (tmp_path / "cpu_polished_c.fa").read_bytes())
+
+
+def _run_cpu_then_card(monkeypatch, argv, patch_plain):
+    """argv through the port's CLI on the CPU (-o cpu) and on the card
+    (-o gpu), the plain versions in `patch_plain` raising on the card;
+    returns the kernel launches of the card run."""
+    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cpu")
+    assert port_main(argv + ["-o", "cpu"]) == 0
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    for mod, name in patch_plain:
+        monkeypatch.setattr(mod, name, no_plain)
+    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cuda")
+    before = dict(kernels.LAUNCHES)
+    assert port_main(argv + ["-o", "gpu"]) == 0
+    return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+
+def test_solve_dbg_on_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
+    """`solve_dbg -unphase` (tests/test_scaffold_cmd.py's data) on the card
+    equals the CPU run."""
+    rng = np.random.default_rng(42)
+    genome = simdata.random_genome(rng, 8000)
+    with open(tmp_path / "c.fa", "w") as f:
+        for i, c in enumerate([genome[:3900], genome[4100:]]):
+            f.write(f">seq{i+1}_len{len(c)}_cov40_read100_maxK50\n{c}\n")
+    fwd, rev = simdata.paired_reads(rng, genome, 100, 500, 50, 30.0)
+    simdata.write_fasta(tmp_path / "1.fa", fwd)
+    simdata.write_fasta(tmp_path / "2.fa", rev)
+    monkeypatch.chdir(tmp_path)
+    launched = _run_cpu_then_card(
+        monkeypatch, ["solve_dbg", "-unphase", "-c", "c.fa", "-IP1", "1.fa",
+                      "2.fa"], [(tkmer, "extract_kmers_packed_plain")])
+    assert launched["kmer_extract"] > 0
+    for name in ("consensusScaffold.fa", "consensusScaffoldComponent.bed",
+                 "lib1_insFreq.tsv"):
+        assert ((tmp_path / f"gpu_{name}").read_bytes()
+                == (tmp_path / f"cpu_{name}").read_bytes()), name
+
+
+def test_phasing_flow_on_card_writes_the_cpu_bytes(dev, tmp_path,
+                                                   monkeypatch):
+    """The default solve_dbg flow on tests/test_phase.py:50's data: its
+    haplotig pairing runs the asm10 long-read aligner, whose segment
+    verification uses the edit_distance kernel on the card (band 128)
+    where the CPU uses hetero.align_scaffold (band 64); both measure these
+    0.3%-divergent segments exactly, so the files agree."""
+    rng = np.random.default_rng(42)
+    homo = simdata.random_genome(rng, 25000)
+    hap1 = simdata.random_genome(rng, 12000)
+    hap2 = simdata.mutate(rng, hap1, 0.003)
+    with open(tmp_path / "c.fa", "w") as f:
+        f.write(f">seq1_len{len(homo)}_cov40_read100_maxK50\n{homo}\n")
+        f.write(f">seq2_len{len(hap1)}_cov21_read100_maxK50\n{hap1}\n")
+        f.write(f">seq3_len{len(hap2)}_cov19_read100_maxK50\n{hap2}\n")
+    monkeypatch.chdir(tmp_path)
+    launched = _run_cpu_then_card(
+        monkeypatch, ["solve_dbg", "-c", "c.fa"],
+        [(tkmer, "extract_kmers_packed_plain"),
+         (talign, "edit_distance_plain")])
+    assert launched["edit_distance"] > 0 and launched["kmer_extract"] > 0
+    for name in ("primaryBubble.fa", "secondaryBubble.fa",
+                 "nonBubbleHetero.fa", "nonBubbleOther.fa",
+                 "bubbleRelation.tsv", "phasedScaffoldComponent.bed"):
+        assert ((tmp_path / f"gpu_{name}").read_bytes()
+                == (tmp_path / f"cpu_{name}").read_bytes()), name

@@ -68,13 +68,14 @@ def test_cli_help_without_jax():
 
 
 def test_round_commands_without_jax():
-    """Every ported command's --help, and `gap_close -eo 2` (which needs
-    the unported models/hetero.py) stopping with a typed ArgError, all in
-    one interpreter that never loads jax."""
+    """Every ported command's --help, and `solve_dbg -combine` (which needs
+    the unported models/combinatorial.py) stopping with a typed ArgError,
+    all in one interpreter that never loads jax."""
     code = ("import contextlib, io, sys\n"
             "from platanus_b_tpu_torch.commands.main import COMMANDS, main\n"
-            "assert set(COMMANDS) == {'assemble', 'gap_close', 'kmer_divide',"
-            " 'merge', 'polish'}\n"
+            "assert set(COMMANDS) == {'assemble', 'scaffold', 'solve_dbg',"
+            " 'gap_close', 'polish', 'merge', 'kmer_divide', 'iterate',"
+            " 'divide', 'consensus', 'phase'}\n"
             "for cmd in COMMANDS:\n"
             "    out = io.StringIO()\n"
             "    with contextlib.redirect_stdout(out):\n"
@@ -83,15 +84,34 @@ def test_round_commands_without_jax():
             "        except SystemExit as e:\n"
             "            assert e.code in (0, None), (cmd, e.code)\n"
             "    assert '-o' in out.getvalue(), cmd\n"
-            "rc = main(['gap_close', '-c', 'x.fa', '-IP1', 'a.fa', 'b.fa',"
-            " '-eo', '2'])\n"
+            "rc = main(['solve_dbg', '-combine', '-c', 'x.fa', '-gc', 'y.fa'])\n"
             "assert rc == 5, rc\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code, {"PLATANUS_B_TPU_TORCH_DEVICE": "cpu"})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
-    assert "ERROR(5)" in res.stderr and "-eo" in res.stderr
+    assert "ERROR(5)" in res.stderr and "-combine" in res.stderr
+
+
+def test_build_parser_and_scaffold_family_without_jax():
+    """The modules of the scaffolding slice, the lazy imports of its
+    functions, and main.build_parser() load no jax."""
+    code = ("import sys\n"
+            "from platanus_b_tpu_torch.commands import (divide_impl,"
+            " iterate_cmd, orchestrators, scaffold_cmd, solve_dbg_cmd)\n"
+            "from platanus_b_tpu_torch.models import (bubble, divide,"
+            " gap_close, hetero, longread, phasing, scaffold)\n"
+            "from platanus_b_tpu_torch.ops import align, minimizer\n"
+            "from platanus_b_tpu_torch.commands.main import build_parser\n"
+            "build_parser()\n"
+            "assert 'platanus_b_tpu.models.gap_close' not in sys.modules\n"
+            "assert 'jax' not in sys.modules, sorted(\n"
+            "    m for m in sys.modules if m.startswith('jax'))\n"
+            "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_no_port_module_names_jax():
@@ -104,7 +124,7 @@ def test_no_port_module_names_jax():
 def test_unknown_command_is_typed_error():
     res = _run("import sys\n"
                "from platanus_b_tpu_torch.commands.main import main\n"
-               "sys.exit(main(['scaffold', '-o', 'x']))\n")
+               "sys.exit(main(['combine', '-o', 'x']))\n")
     assert res.returncode == 5
     assert "ERROR(5)" in res.stderr
 

@@ -90,7 +90,8 @@ def test_kmer_divide_cli_byte_identical(data, monkeypatch, k, flags):
     assert len(pairs) == 1 and (data / pairs[0][0]).stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [[], ["-reduce_redundancy"], ["-extend"]])
+@pytest.mark.parametrize("flags", [[], ["-reduce_redundancy"], ["-extend"],
+                                   ["-eo", "2"]])
 def test_gap_close_cli_byte_identical(data, monkeypatch, flags):
     tag = f"gc{''.join(flags)}"
     pairs = _both(data, monkeypatch, ["gap_close", "-c", "scaffold.fa",
@@ -126,16 +127,6 @@ def test_merge_cli_byte_identical(data, monkeypatch, flags):
     names = sorted(j for j, _p in pairs)
     assert names == [f"jax{tag}_merged.fa", f"jax{tag}_mergedJunctionKmer.fa"]
     assert (data / names[0]).stat().st_size > 0
-
-
-def test_gap_close_eo2_is_arg_error(data, monkeypatch):
-    """-eo >= 2 needs models/hetero.py, which is not ported: a typed
-    ArgError (exit 5), not an ImportError."""
-    monkeypatch.chdir(data)
-    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cpu")
-    assert port_main(["gap_close", "-c", "scaffold.fa", "-IP1", "r1.fa",
-                      "r2.fa", "-eo", "2", "-o", "eo2"]) == 5
-    assert not any(p.startswith("eo2") for p in os.listdir(data))
 
 
 @pytest.mark.parametrize("k", [32, 62])

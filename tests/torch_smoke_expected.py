@@ -1,8 +1,9 @@
 """Write platanus_b_tpu_torch/smoke_expected.json: the JAX package's outputs
-for chip_smoke.py's bubble configuration (phase 4) and its iterate round
-(phase 5), computed on the CPU.
+for chip_smoke.py's bubble configuration (phase 4), its iterate round
+without solve_dbg (phase 5) and its `iterate -i 1` (phase 6), computed on
+the CPU.
 
-    python tests/torch_smoke_expected.py [--part all|bubble|round] [--check-port]
+    python tests/torch_smoke_expected.py [--part all|bubble|round|iterate] [--check-port]
 
 The datasets come from platanus_b_tpu_torch.simulate and tests/simdata.py
 (numpy only), so the JAX package here and the port on the card read
@@ -85,9 +86,39 @@ def round_record(tmp: str, check_port: bool) -> dict:
             "jax_cpu_wall_s": {k: round(v, 1) for k, v in walls.items()}}
 
 
+def iterate_record(tmp: str, check_port: bool) -> dict:
+    import chip_smoke
+    from platanus_b_tpu.commands.main import main as jax_main
+
+    ds = chip_smoke.ROUND_DATASET
+    data = os.path.join(tmp, "data")
+    chip_smoke.make_round_dataset(data, ds)
+    contigs = chip_smoke.make_iterate_contigs(data, ds)
+    wall = chip_smoke.run_iterate(os.path.join(tmp, "jax_it"), data, jax_main)
+    sha = chip_smoke.iterate_hashes(os.path.join(tmp, "jax_it"))
+    inter = os.path.join(tmp, "jax_it", "it_iterateIntermediateResults", "it1")
+    n_div = chip_smoke.fasta_count(os.path.join(inter, "it_kmerDivided.fa"))
+    n_cons = chip_smoke.fasta_count(os.path.join(inter,
+                                                 "it_consensusScaffold.fa"))
+    print(f"iterate: {n_div} kmerDivided records, {n_cons} consensus "
+          f"scaffolds")
+    if check_port:
+        from platanus_b_tpu_torch.commands.main import main as port_main
+        chip_smoke.run_iterate(os.path.join(tmp, "port_it"), data, port_main)
+        port = chip_smoke.iterate_hashes(os.path.join(tmp, "port_it"))
+        print("iterate: port on CPU matches:", port == sha)
+        assert port == sha, "iterate: the port's CPU bytes differ"
+    return {"dataset": ds, "contigs_sha256": contigs,
+            "argv": chip_smoke.ITERATE_ARGV, "sha256": sha,
+            "num_kmer_divided": n_div, "num_consensus_scaffolds": n_cons,
+            "made_by": "JAX package on the CPU (platanus_b_tpu iterate from "
+                       "the work directory)",
+            "jax_cpu_wall_s": round(wall, 1)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("all", "bubble", "round"), default="all")
+    ap.add_argument("--part", choices=("all", "bubble", "round", "iterate"), default="all")
     ap.add_argument("--check-port", action="store_true")
     args = ap.parse_args()
     os.environ["PLATANUS_B_TPU_PLATFORM"] = "cpu"
@@ -101,6 +132,8 @@ def main() -> int:
             record.update(bubble_record(tmp, args.check_port))
         if args.part in ("all", "round"):
             record["round"] = round_record(tmp, args.check_port)
+        if args.part in ("all", "iterate"):
+            record["iterate"] = iterate_record(tmp, args.check_port)
     record["command"] = "python tests/torch_smoke_expected.py"
     with open(OUT, "w") as f:
         json.dump(record, f, indent=1)
