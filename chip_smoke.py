@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of platanus_b_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--genome-bp 1000000|4600000]
+    python3 chip_smoke.py [--genome-bp 1000000|4600000] [--against DIR]
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: card name and power limit (nvidia-smi), torch and CUDA
    versions, kernel build time (one nvcc per source, all at once);
 2. each CUDA kernel against its plain PyTorch version on the card (exact
-   equality), with both times at the main path's shapes;
+   equality), with both times at the main path's shapes, the bound there
+   (the larger of the bytes each input read once and each output written
+   once take at 3.35 TB/s, and the operations take at 67 T/s), what sets
+   it, and the kernel's share of it (for ungap_align with the count of ok
+   slots its bound is taken over). With --against DIR (another version's
+   kernel sources, e.g. a parent commit's platanus_b_tpu_torch/csrc
+   unpacked with git archive) each timed kernel is also timed with those
+   sources' build, in turns (other, this, this, other), on the same card;
 3. the main path: `assemble -k 32` through the port's CLI on the parity
    dataset (parity/run_parity.py:121 simulate(genome_bp, 125, 40, 0.003,
    123)); the sorted canonical contig set must hash to the value recorded
@@ -55,6 +62,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASE = {"name": "start"}
+AGAINST = {"lib": None}  # --against: the other sources' kernel entry points
 
 # phase 5: the dataset of parity/gapclose_bench.py at its defaults, and the
 # round's commands (iterate_cmd.py:88-149 without solve_dbg), run from the
@@ -277,18 +285,64 @@ def fasta_count(path: str) -> int:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s, and
+# the non-tensor float32 rate, against which the kernels' integer operations
+# are counted (the data sheet gives no integer rate outside the tensor cores)
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of `fn`, from CUDA events around `reps`
+    calls queued behind a sleep kernel, so that the host's launch cost does
+    not show between them."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if hasattr(torch.cuda, "_sleep"):
+        torch.cuda._sleep(50_000_000)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def in_turns(fn) -> dict:
+    """With --against: `fn` (a call of a kernel's wrapper) timed with the
+    other sources' build and with this one in turns (other, this, this,
+    other); {} without it."""
+    from platanus_b_tpu_torch import kernels
+    other = AGAINST["lib"]
+    if other is None:
+        return {}
+    own = kernels.library()
+    times = []
+    try:
+        for lib in (other, own, own, other):
+            kernels._lib = lib
+            times.append(cuda_ms(fn, reps=20))
+    finally:
+        kernels._lib = own
+    return {"against_ms": [times[0], times[3]], "turns_ms": times[1:3]}
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over its
+    memory rate and the operations over its scalar rate."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_S
+    by_ops = 1e3 * n_ops / SCALAR_OPS_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(n_bytes), "operations": int(n_ops)}
+
+
+def with_share(rec: dict) -> dict:
+    rec["roofline_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else None
+    return rec
 
 
 def _mutate(rng, s, n_sub, n_ins, n_del):
@@ -329,6 +383,29 @@ def _pair_set(rng, lengths, edits):
     return qs, ts
 
 
+# integer operations per evaluated cell or window, counted from the
+# kernels' sources (compares, mins, adds, shifts, masks); they only decide
+# whether the bound is set by operations or by bytes
+ED_OPS_PER_CELL = 8
+KMER_OPS_PER_WORD = 24
+UNGAP_OPS_PER_BASE = 4
+
+
+def band_cells(qs, ts, bw: int) -> int:
+    """Cells of the band that lie inside each pair's DP matrix (the work
+    these pairs need): for each anti-diagonal d the band starts at
+    lo(d) = max(d*ql // max(ql+tl-1, 1) - bw/2, 0) (csrc/edit_distance.cu)."""
+    total = 0
+    for q, t in zip(qs, ts):
+        ql, tl = max(len(q), 1), max(len(t), 1)
+        d = np.arange(ql + tl - 1, dtype=np.int64)
+        lo = np.maximum(d * ql // max(ql + tl - 1, 1) - bw // 2, 0)
+        first = np.maximum(lo, np.maximum(d - (tl - 1), 0))
+        last = np.minimum(np.minimum(lo + bw - 1, d), ql - 1)
+        total += int(np.maximum(last - first + 1, 0).sum())
+    return total
+
+
 def check_edit_distance(dev, rng):
     import torch
 
@@ -349,9 +426,18 @@ def check_edit_distance(dev, rng):
             check(expect(g), f"edit_distance {name}: unexpected values {g}")
         rec = {"set": name, "pairs": len(qs), "bw": bw, "max_abs_err": err}
         if timed:
-            rec["ms"] = cuda_ms(lambda: align.edit_distance(q, t, ql, tl, bw))
+            rec["ms"] = cuda_ms(lambda: align.edit_distance(q, t, ql, tl, bw),
+                                reps=20)
             rec["plain_ms"] = cuda_ms(
                 lambda: align.edit_distance_plain(q, t, ql, tl, bw), reps=2)
+            cells = band_cells(qs, ts, bw)
+            n_bytes = (q.numel() + t.numel() + 4 * (ql.numel() + tl.numel())
+                       + 4 * len(qs))
+            rec.update(band_cells=cells,
+                       **bound(n_bytes, ED_OPS_PER_CELL * cells),
+                       **in_turns(
+                           lambda: align.edit_distance(q, t, ql, tl, bw)))
+            with_share(rec)
         results.append(rec)
 
     # the crush_bubble call of phase 4: 574 pairs of branch middles of at
@@ -417,12 +503,25 @@ def check_kmer_extract(dev, rng, main_reads):
         torch.cuda.synchronize()
         same = torch.equal(got, want) and torch.equal(gn, wn)
         check(same, f"kmer_extract {name} k={k}: kernel != plain")
-        rec = {"set": name, "k": k, "windows": int(got.shape[0] * got.shape[1]),
-               "max_abs_err": 0}
+        windows = int(got.shape[0] * got.shape[1])
+        rec = {"set": name, "k": k, "windows": windows, "max_abs_err": 0}
         if timed:
-            rec["ms"] = cuda_ms(lambda: extract_kmers_packed(words, k, **kw))
+            rec["ms"] = cuda_ms(lambda: extract_kmers_packed(words, k, **kw),
+                                reps=20)
             rec["plain_ms"] = cuda_ms(
                 lambda: extract_kmers_packed_plain(words, k, **kw), reps=2)
+            # each input read once (packed words, N-mask or lengths), each
+            # output written once (the keys and n_valid)
+            n_in = sum(x.numel() * x.element_size()
+                       for x in (words, kw.get("nmask"), kw.get("lengths"))
+                       if x is not None)
+            n_out = got.numel() * got.element_size() + 8
+            W = -(-k // 16)
+            rec.update(mode="nmask" if "nmask" in kw else "lengths",
+                       **bound(n_in + n_out, KMER_OPS_PER_WORD * W * windows),
+                       **in_turns(
+                           lambda: extract_kmers_packed(words, k, **kw)))
+            with_share(rec)
         results.append(rec)
 
     R, L = 1500, 160
@@ -436,10 +535,16 @@ def check_kmer_extract(dev, rng, main_reads):
     l_t = torch.from_numpy(lens).to(dev)
     w_plain, _ = pack_codes(c_t)
     w_n, m_n = pack_codes(n_t)
-    for k in (25, 32, 42, 52, 62, 72, 95):
+    for k in (16, 25, 32, 33, 42, 52, 62, 64, 65, 72, 95):
         compare("nmask", w_n, k, nmask=m_n, max_len=L)
         compare("lengths", w_plain, k, lengths=l_t, max_len=int(lens.max()))
     compare("forward", w_n, 42, nmask=m_n, max_len=L, forward_only=True)
+    # rows longer than a whole-read tile (a concatenated contig set)
+    long_codes = rng.integers(0, 4, size=(2, 20000)).astype(np.uint8)
+    long_codes[rng.random(long_codes.shape) < 0.001] = 4
+    w_l, m_l = pack_codes(torch.from_numpy(long_codes).to(dev))
+    for k in (32, 65):
+        compare("long_rows", w_l, k, nmask=m_l, max_len=19990)
     # the main path's shape: every read of the run's dataset at k = 32,
     # packed and validated as the first counting pass does it
     words, nmask = main_reads.packed()
@@ -448,6 +553,29 @@ def check_kmer_extract(dev, rng, main_reads):
     compare("main_path", words, 32, timed=True, max_len=main_reads.max_len,
             **mode)
     return results
+
+
+def ungap_bound(args) -> dict:
+    """Bytes these inputs need: the read codes and lengths, every slot's ok
+    flag, the metadata (is_fwd, cid, ro, clen: 13 bytes) of the ok slots
+    and of slot 0 where it is not ok (its values are returned when nothing
+    scores), starts and the contig pool once each, and the five outputs;
+    operations: a few per base compared in each ok slot's span. Beside it,
+    the figure with every input read whole."""
+    codes, lengths, pool, starts, ok = args[:5]
+    R, L = codes.shape
+    n_slots = ok.numel()
+    ok_slots = int(ok.sum())
+    slot0_not_ok = int((~ok.reshape(R, -1)[:, 0]).sum()) if R else 0
+    common = (codes.numel() + 4 * R + pool.numel() + 4 * starts.numel()
+              + 5 * 4 * R)
+    need = common + n_slots + 13 * (ok_slots + slot0_not_ok)
+    rec = bound(need, UNGAP_OPS_PER_BASE * L * ok_slots)
+    all_inputs = common + 14 * n_slots
+    rec.update(ok_slots=ok_slots, slot0_not_ok=slot0_not_ok,
+               all_inputs_bytes=all_inputs,
+               all_inputs_bound_ms=1e3 * all_inputs / HBM_BYTES_S)
+    return rec
 
 
 def check_ungap_align(dev, data: str):
@@ -476,9 +604,12 @@ def check_ungap_align(dev, data: str):
                "width": int(args[0].shape[1]),
                "mapped": int((got[0] != 0).sum()), "max_abs_err": err, **extra}
         if timed:
-            rec["ms"] = cuda_ms(lambda: mapper.ungap_align(*args))
+            rec["ms"] = cuda_ms(lambda: mapper.ungap_align(*args), reps=20)
             rec["plain_ms"] = cuda_ms(lambda: mapper.ungap_align_plain(*args),
                                       reps=2)
+            rec.update(ungap_bound(args),
+                       **in_turns(lambda: mapper.ungap_align(*args)))
+            with_share(rec)
         results.append(rec)
 
     lib = load_pair_library(LibrarySpec(1, [("IP", [os.path.join(data, "r1.fa"),
@@ -501,6 +632,14 @@ def check_ungap_align(dev, data: str):
         arrs = ungap_edge_inputs(seed, width=width, min_identity=mi)
         args = [torch.from_numpy(a).to(dev) for a in arrs[:-1]] + [arrs[-1]]
         compare(f"edge_{seed}_w{width}", args, min_identity=mi)
+    # dedup before scoring: all-equal slots, not-ok slots ahead of their ok
+    # twins, S*H = 21 (no multiple of 32)
+    for seed, width, mi, S, H in ((7, 100, 0.0, 5, 16), (8, 100, 0.97, 3, 7),
+                                  (9, 600, 0.9, 5, 16)):
+        arrs = ungap_edge_inputs(seed, width=width, min_identity=mi, S=S,
+                                 H=H, twins=True)
+        args = [torch.from_numpy(a).to(dev) for a in arrs[:-1]] + [arrs[-1]]
+        compare(f"twins_{seed}_w{width}_sh{S * H}", args, min_identity=mi)
     return results
 
 
@@ -578,6 +717,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-bp", type=int, default=1_000_000,
                     help="parity dataset of phase 3: 1000000 or 4600000")
+    ap.add_argument("--against", metavar="DIR",
+                    help="another version's kernel sources (*.cu): phase 2 "
+                         "also times them, in turns with these")
     args = ap.parse_args()
 
     PHASE["name"] = "environment"
@@ -601,12 +743,19 @@ def main() -> int:
     kernels.library()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_summary(kernels.BUILD_INFO.get("log", ""))
-    emit({"phase": "environment", "ok": True, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0),
-          "kernel_build_s": build_s,
-          "kernel_library_compiled": kernels.BUILD_INFO.get("compiled"),
-          "ptxas": ptxas})
+    env = {"phase": "environment", "ok": True, "nvidia_smi": smi,
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "device": torch.cuda.get_device_name(0),
+           "kernel_build_s": build_s,
+           "kernel_library_compiled": kernels.BUILD_INFO.get("compiled"),
+           "ptxas": ptxas}
+    if args.against:
+        check(os.path.isdir(args.against), f"--against {args.against}: no "
+              "such directory")
+        AGAINST["lib"], info = kernels.build(args.against)
+        env.update(against=args.against,
+                   against_ptxas=ptxas_summary(info["log"]))
+    emit(env)
 
     work = os.path.join(REPO, "platanus_b_tpu_torch", "build", "smoke")
     os.makedirs(work, exist_ok=True)
@@ -646,8 +795,12 @@ def main() -> int:
     for name, recs in (("edit_distance", ed), ("kmer_extract", km),
                        ("ungap_align", ua)):
         timed = [r for r in recs if "ms" in r][0]
+        # no single PyTorch call computes any of the three functions
         kern[name].update(max_abs_err=max(r["max_abs_err"] for r in recs),
                           ms=timed["ms"], plain_ms=timed["plain_ms"],
+                          bound_ms=timed["bound_ms"],
+                          bound_by=timed["bound_by"], library_ms=None,
+                          roofline_share=timed["roofline_share"],
                           timed_set=timed["set"])
     torch.cuda.empty_cache()
     launches = {}

@@ -1,4 +1,4 @@
-"""platanus_b_tpu_torch — the `assemble` path of platanus_b_tpu on PyTorch + CUDA.
+"""platanus_b_tpu_torch — platanus_b_tpu on PyTorch + CUDA.
 
 A second package beside ``platanus_b_tpu`` (the JAX reference). Module and
 function names follow the JAX package so each counterpart is easy to find:
@@ -9,15 +9,20 @@ function names follow the JAX package so each counterpart is easy to find:
 - ``ops.search``    <- ``ops/search.py``
 - ``ops.align``     <- ``ops/align.py`` + ``ops/pallas_align.py`` (+ the
   ``edit_distance`` CUDA kernel, the port of the Pallas ``_bed_kernel``)
-- ``models.dbg``, ``models.clean``, ``models.assemble_core``
-- ``commands.main``, ``commands.assemble_cmd``
+- ``models.*``      <- ``models/*`` (+ the ``ungap_align`` CUDA kernel in
+  ``models.mapper``)
+- ``commands.*``    <- ``commands/*``
 
-Host-only helpers of the JAX package that need only numpy (``io``, ``utils.errors``,
-``utils.constants``, ``native``) are imported from the JAX package.
-Every device function takes its tensors (or an explicit ``device``); there
-is no global default device. Run as ``python -m platanus_b_tpu_torch``.
+The package is self-contained: it imports nothing of the JAX package.
+The host-only modules it needs (``io``, ``utils.errors``,
+``utils.constants``, ``native``) are copies of the JAX package's, pinned
+to the reference's text by tests/test_torch_scaffold.py; the native IO
+library builds into ``build/`` here. Every device function takes its
+tensors (or an explicit ``device``); there is no global default device.
+Run as ``python -m platanus_b_tpu_torch``.
 """
 
-from platanus_b_tpu import REFERENCE_VERSION, __version__
+__version__ = "0.1.0"
+REFERENCE_VERSION = "1.3.2"  # platanus_b version we reproduce (common.cpp:26)
 
 __all__ = ["REFERENCE_VERSION", "__version__"]

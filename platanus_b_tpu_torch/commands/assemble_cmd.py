@@ -9,14 +9,13 @@ from __future__ import annotations
 import argparse
 import os
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.io.reads import load_read_batches
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..device import select_device
+from ..io import fasta as fa
+from ..io.reads import load_read_batches
 from ..models.assemble_core import (AssembleOptions, assemble,
                                     assemble_repeat)
 from ..ops import count as cnt
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 

@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from platanus_b_tpu.io import fasta as fa
-
 from ..device import select_device
+from ..io import fasta as fa
 from ..models import seqlib
 from ..models.mapper import ContigIndex, map_reads
 from ..utils.log import LOG

@@ -19,13 +19,12 @@ import os
 
 import numpy as np
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..device import select_device
+from ..io import fasta as fa
 from ..models import gap_close as gc
 from ..models import seqlib
 from ..models.mapper import ContigIndex, map_reads
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 
@@ -209,7 +208,7 @@ def run(args) -> int:
 
     single_reads = None
     if args.f:
-        from platanus_b_tpu.io.reads import load_read_batches
+        from ..io.reads import load_read_batches
         mats, lens_all = [], []
         lmax = 0
         for b in load_read_batches(args.f):

@@ -27,9 +27,8 @@ import shutil
 
 import numpy as np
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
+from ..io import fasta as fa
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 

@@ -19,14 +19,13 @@ import os
 import numpy as np
 import torch
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..device import select_device
+from ..io import fasta as fa
 from ..ops import count as cnt
 from ..ops.keys import keys_from_words
 from ..ops.kmer import extract_kmers_packed, pack_codes
 from ..ops.search import lookup
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 

@@ -20,9 +20,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..models.seqlib import PairLibrary
+from ..utils.errors import ArgError, IOError_
 
 PAIR_FLAG_RE = re.compile(r"^-(IP|ip|OP|op)(\d+)$")
 
@@ -65,8 +64,8 @@ def _load_packed(path: str) -> tuple[np.ndarray, np.ndarray]:
     gap_close wall at 240k-pair scale through the list-based path)."""
     if not os.path.exists(path):
         raise IOError_(f"cannot open file: {path}")
-    from platanus_b_tpu import native
-    from platanus_b_tpu.io.fasta import load_codes
+    from .. import native
+    from ..io.fasta import load_codes
     codes, starts = load_codes(path)
     lens = np.diff(starts).astype(np.int32)
     lmax = int(lens.max()) if len(lens) else 0

@@ -13,9 +13,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from platanus_b_tpu.utils.errors import ArgError, PlatanusError
-
 from .. import REFERENCE_VERSION, __version__
+from ..utils.errors import ArgError, PlatanusError
 from ..utils.log import LOG
 
 COMMANDS = ("assemble", "scaffold", "solve_dbg", "gap_close", "polish",

@@ -18,14 +18,13 @@ import os
 import numpy as np
 import torch
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..device import select_device
+from ..io import fasta as fa
 from ..models import clean
 from ..models.assemble_core import (average_coverage_excluding_outlier,
                                     build_dbg_from_table, count_from_contigs)
 from ..ops.kmer import kmer_to_codes
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 

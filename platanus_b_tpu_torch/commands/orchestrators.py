@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import os
 
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 

@@ -10,11 +10,10 @@ import os
 
 import numpy as np
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..device import select_device
+from ..io import fasta as fa
 from ..models.polish import PolishOptions, polish
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 

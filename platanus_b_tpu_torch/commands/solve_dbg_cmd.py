@@ -26,14 +26,13 @@ import os
 
 import numpy as np
 
-from platanus_b_tpu.io import fasta as fa
-from platanus_b_tpu.utils.errors import ArgError, IOError_
-
 from ..device import select_device
+from ..io import fasta as fa
 from ..models import seqlib
 from ..models.mapper import ContigIndex
 from ..models.scaffold import (MAX_TOL_FACTOR, MIN_TOL_FACTOR, ScaffoldGraph,
                                mark_redundant_result_seq)
+from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
 # long-read alignment gates for scaffolding decisions (solveDBG.cpp:44-46:

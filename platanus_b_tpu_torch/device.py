@@ -11,7 +11,7 @@ import os
 
 import torch
 
-from platanus_b_tpu.utils.errors import PlatanusError
+from .utils.errors import PlatanusError
 
 ENV_VAR = "PLATANUS_B_TPU_TORCH_DEVICE"
 

@@ -25,7 +25,7 @@ from types import SimpleNamespace
 
 import torch
 
-from platanus_b_tpu.utils.errors import PlatanusError
+from .utils.errors import PlatanusError
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -69,8 +69,8 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(csrc: str) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
 
 
 def _target(src: str) -> str:
@@ -82,14 +82,13 @@ def _target(src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def library() -> SimpleNamespace:
-    """The kernels' C entry points, built from csrc/ on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
+def build(csrc: str = CSRC) -> tuple[SimpleNamespace, dict]:
+    """The C entry points of the *.cu sources under `csrc`, each compiled
+    by its own nvcc, all at once, into BUILD_DIR (reused while a source is
+    unchanged); and the build's record (paths, seconds, compiled, log)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    todo = [(src, _target(src)) for src in _sources()]
+    todo = [(src, _target(src)) for src in _sources(csrc)]
     procs = []
     for src, so in todo:
         if not os.path.exists(so):
@@ -107,9 +106,9 @@ def library() -> SimpleNamespace:
             os.replace(tmp, so)
     if failed:
         raise KernelError("nvcc failed: " + "\n".join(failed))
-    BUILD_INFO.update(paths=[so for _s, so in todo],
-                      seconds=time.perf_counter() - t0,
-                      compiled=bool(procs), log="\n".join(logs))
+    info = dict(paths=[so for _s, so in todo],
+                seconds=time.perf_counter() - t0,
+                compiled=bool(procs), log="\n".join(logs))
     fns = {}
     for _src, so in todo:
         cdll = ctypes.CDLL(so)
@@ -121,7 +120,15 @@ def library() -> SimpleNamespace:
     missing = sorted(set(_SIGNATURES) - set(fns))
     if missing:
         raise KernelError(f"kernel library lacks {missing}")
-    _lib = SimpleNamespace(**fns)
+    return SimpleNamespace(**fns), info
+
+
+def library() -> SimpleNamespace:
+    """The kernels' C entry points, built from csrc/ on first use."""
+    global _lib
+    if _lib is None:
+        _lib, info = build()
+        BUILD_INFO.update(info)
     return _lib
 
 
@@ -178,8 +185,9 @@ def ungap_align(codes: torch.Tensor, lengths: torch.Tensor,
                 out: tuple[torch.Tensor, ...]) -> None:
     """Launch csrc/ungap_align.cu on CUDA tensors the caller checked.
     out = (id, ro, identity, mis, span), each (R,). The kernel refuses
-    S*H above what one warp's arrays fit in 48 KB of shared memory (2457
-    slots; polish at seed 32 and H 16 uses 80 for 100 bp reads)."""
+    S*H above what one read's entry arrays fit in a block's 227 KB of
+    shared memory (8301 slots; polish at seed 32 and H 16 uses 80 for
+    100 bp reads)."""
     lib = library()
     R, L = codes.shape
     SH = ok.shape[1] * ok.shape[2]

@@ -16,8 +16,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from platanus_b_tpu.io.reads import ReadBatch, load_read_batches
-
+from ..io.reads import ReadBatch, load_read_batches
 from ..ops import count as cnt
 from ..ops.keys import (is_sentinel, keys_to_words, lanes_to_words, num_lanes,
                         num_words)

@@ -85,7 +85,7 @@ def classify_phase_blocks(results, bubbles, average_coverage: float,
     Returns (pairs, hetero_ids, other_ids, blocks) where pairs is a list of
     (primary block id, secondary block id).
     """
-    from platanus_b_tpu.io import fasta as fa
+    from ..io import fasta as fa
 
     blocks: list[PhaseBlock] = []
     for i, r in enumerate(results):
@@ -145,7 +145,7 @@ def write_phase_outputs(out_prefix: str, pairs, hetero_ids, other_ids,
                                   "_nonBubbleHetero.fa", "_nonBubbleOther.fa",
                                   "_bubbleRelation.tsv")) -> None:
     """outputResultSeqWithBubble (pairedDBG.cpp:2296-2394) file layout."""
-    from platanus_b_tpu.io import fasta as fa
+    from ..io import fasta as fa
 
     def header(tag: str, n: int, b: PhaseBlock) -> str:
         return (f"{tag}{n}_len{len(b.seq)}_cov{int(b.coverage + 0.5)}"

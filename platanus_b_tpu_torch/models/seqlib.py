@@ -325,7 +325,7 @@ def extract_tag(header: str) -> str:
 
 def _iter_reads_full_header(path: str):
     """(full header line, sequence) records; FASTA or FASTQ, gz/bz2 ok."""
-    from platanus_b_tpu.io.fasta import open_maybe_compressed, sniff_format
+    from ..io.fasta import open_maybe_compressed, sniff_format
 
     fmt = sniff_format(path)
     with open_maybe_compressed(path) as f:
@@ -357,9 +357,9 @@ def _iter_reads_full_header(path: str):
 def load_tag_library(x_files: list[str], xx_files: list[str]) -> TagLibrary:
     """Load -x (interleaved) and -X (fwd rev pairs) tagged files
     (solveDBG.cpp:853-895 readLibrary tag branch)."""
-    from platanus_b_tpu.io.fasta import seq_to_codes
-    from platanus_b_tpu.io.reads import pack_reads
-    from platanus_b_tpu.utils.errors import ArgError
+    from ..io.fasta import seq_to_codes
+    from ..io.reads import pack_reads
+    from ..utils.errors import ArgError
 
     fwd, rev, tag_strings = [], [], []
     for path in x_files:

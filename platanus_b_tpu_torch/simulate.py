@@ -12,7 +12,8 @@ numpy only, so the JAX package and the port can be fed identical files.
   makes the bubbles that `assemble -u` crushes.
 - ``ungap_edge_inputs``: inputs of the ungap_align kernel that reach its
   edge cases (reads shorter than a seed, N codes, slots at contig ends in
-  both orientations, duplicate slots across seeds, tied maxima).
+  both orientations, duplicate slots across seeds, tied maxima, and with
+  ``twins`` all-equal slots and not-ok slots ahead of their ok twins).
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def simulate_two_haplotypes(path: str, genome_size: int, het_rate: float,
 
 
 def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,
-                      S: int = 5, H: int = 16, min_identity: float = 0.9):
+                      S: int = 5, H: int = 16, min_identity: float = 0.9,
+                      twins: bool = False):
     """numpy inputs of models/mapper.py:ungap_align, in its argument order:
     (codes (R, L) u8, lengths (R,) i32, pool (cap,) u8, starts (C+1,) i32,
     ok, is_fwd (R, S, H) bool, cid, ro, clen (R, S, H) i32, min_identity).
@@ -78,7 +80,13 @@ def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,
     Each read is cut from a contig at an offset that may overhang either
     end, in either orientation, with substitutions and Ns; its slots hold
     the true placement, near misses, copies of earlier slots (duplicates
-    across seeds) and random placements, some of them not ok."""
+    across seeds) and random placements, some of them not ok.
+
+    `twins` adds, from a second generator so the rest stays as it is, the
+    slot patterns that dedup before scoring must get right: reads whose
+    every slot is the true placement (all ok, or ok from slot 7 or 14 on),
+    and reads whose true placement sits first in a slot that is not ok,
+    with an ok twin later."""
     rng = np.random.default_rng(seed)
     clens = rng.integers(40, 400, size=8)
     clens[1] = clens[0]
@@ -127,6 +135,20 @@ def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,
             s2, h2 = int(rng.integers(0, S)), int(rng.integers(1, H))
             is_fwd[r, s2, h2], cid[r, s2, h2], ro[r, s2, h2] = fwd, 1 - c, o
             ok[r, s2, h2] = True
+    if twins:
+        tw = np.random.default_rng(seed + 1000)
+        for r in range(R):
+            kind = r % 4
+            if kind == 1:                    # every slot equal
+                is_fwd[r] = is_fwd[r, 0, 0]
+                cid[r], ro[r] = cid[r, 0, 0], ro[r, 0, 0]
+                ok[r] = np.arange(S * H).reshape(S, H) >= tw.integers(0, 3) * 7
+            elif kind == 2:                  # a not-ok twin ahead of its ok one
+                ok[r, 0, 0] = False
+                s2, h2 = int(tw.integers(0, S)), int(tw.integers(1, H))
+                is_fwd[r, s2, h2] = is_fwd[r, 0, 0]
+                cid[r, s2, h2], ro[r, s2, h2] = cid[r, 0, 0], ro[r, 0, 0]
+                ok[r, s2, h2] = True
     clen = clens[cid].astype(np.int32)
     return (codes, lengths, pool, starts, ok, is_fwd, cid, ro, clen,
             float(min_identity))

@@ -80,6 +80,84 @@ def test_kmer_extract_all_ones_key_odd_words(dev):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _kmer_equal(words, k, **kw):
+    got = tkmer.extract_kmers_packed(words, k, **kw)
+    want = tkmer.extract_kmers_packed_plain(words, k, **kw)
+    assert torch.equal(got[0], want[0]), "keys"
+    assert torch.equal(got[1], want[1]), (got[1], want[1])
+
+
+@pytest.mark.parametrize("mode", ["nmask", "lengths"])
+@pytest.mark.parametrize("k", [16, 32, 33, 48, 64, 65, 96, 256])
+def test_kmer_extract_tiles_and_edges(dev, k, mode):
+    """Whole-read tiles: a read count that is no multiple of a tile's rows,
+    Ns in the first and the last window, P no multiple of the threads per
+    read, both validity modes and both strands."""
+    rng = np.random.default_rng(1000 + k)
+    R, L = 1001, 300
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    lens = rng.integers(k, L + 1, size=R).astype(np.int32)
+    lens[:3] = L
+    if mode == "nmask":
+        codes[rng.random((R, L)) < 0.004] = 4
+        codes[::7, 0] = 4                       # N in the first window
+        codes[np.arange(3, R, 11), lens[3::11] - 1] = 4   # ... and the last
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 4
+    Lp = -(-L // 32) * 32
+    padded = np.full((R, Lp), 4, np.uint8)
+    padded[:, :L] = codes
+    words, nmask = tkmer.pack_codes(torch.from_numpy(padded).to(dev))
+    kw = ({"nmask": nmask} if mode == "nmask"
+          else {"lengths": torch.from_numpy(lens).to(dev)})
+    for fwd in (False, True):
+        _kmer_equal(words, k, max_len=L, forward_only=fwd, **kw)
+
+
+@pytest.mark.parametrize("k", [32, 65])
+def test_kmer_extract_long_rows(dev, k):
+    """Rows longer than a whole-row tile take window ranges of one row,
+    across the range boundaries, as a concatenated contig set does."""
+    rng = np.random.default_rng(k)
+    R, L = 3, 20000
+    codes = rng.integers(0, 4, size=(R, L)).astype(np.uint8)
+    codes[rng.random((R, L)) < 0.001] = 4
+    codes[1, 4090:4100] = 4
+    words, nmask = tkmer.pack_codes(torch.from_numpy(codes).to(dev))
+    _kmer_equal(words, k, nmask=nmask, max_len=L - 7)
+    lens = torch.tensor([L, L - 9, 5000], dtype=torch.int32, device=dev)
+    _kmer_equal(words, k, lengths=lens, max_len=L)
+
+
+def test_kmer_extract_n_valid_at_main_path_shape(dev):
+    """The 1 Mbp main path's shape: 320,000 reads of 125 bases at k = 32,
+    with Ns; keys and the valid-window count are exact."""
+    rng = np.random.default_rng(125)
+    R, L = 320_000, 125
+    codes = np.full((R, 128), 4, np.uint8)
+    codes[:, :L] = rng.integers(0, 4, size=(R, L))
+    codes[:, :L][rng.random((R, L)) < 0.001] = 4
+    words, nmask = tkmer.pack_codes(torch.from_numpy(codes).to(dev))
+    _kmer_equal(words, 32, nmask=nmask, max_len=L)
+
+
+@pytest.mark.parametrize("seed,width,min_identity,S,H",
+                         [(7, 100, 0.0, 5, 16), (8, 100, 0.97, 3, 7),
+                          (9, 600, 0.9, 5, 16), (10, 150, 0.97, 5, 16),
+                          (11, 600, 0.0, 3, 7)])
+def test_ungap_align_slot_patterns(dev, seed, width, min_identity, S, H):
+    """Dedup before scoring: every slot equal, a not-ok slot ahead of its
+    ok twin, S*H no multiple of 32 (21), the global-memory read path (600)
+    and min_identity 0 and 0.97."""
+    arrs = ungap_edge_inputs(seed, width=width, min_identity=min_identity,
+                             S=S, H=H, twins=True)
+    args = [torch.from_numpy(a).to(dev) for a in arrs[:-1]] + [arrs[-1]]
+    got = tmapper.ungap_align(*args)
+    want = tmapper.ungap_align_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0 < int((got[0] != 0).sum()) < len(got[0])
+
+
 @pytest.mark.parametrize("seed,width,min_identity",
                          [(1, 100, 0.0), (2, 100, 0.97), (3, 150, 0.9),
                           (4, 300, 0.5), (5, 600, 0.9)])

@@ -4,11 +4,15 @@ tests/conftest.py imports jax for the whole session, so every check runs
 in a fresh interpreter.
 """
 
+import ast
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import textwrap
+
+import pytest
 
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -105,7 +109,8 @@ def test_build_parser_and_scaffold_family_without_jax():
             "from platanus_b_tpu_torch.ops import align, minimizer\n"
             "from platanus_b_tpu_torch.commands.main import build_parser\n"
             "build_parser()\n"
-            "assert 'platanus_b_tpu.models.gap_close' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m == 'platanus_b_tpu'\n"
+            "            or m.startswith('platanus_b_tpu.')]\n"
             "assert 'jax' not in sys.modules, sorted(\n"
             "    m for m in sys.modules if m.startswith('jax'))\n"
             "print('ok')\n")
@@ -148,3 +153,67 @@ def test_cuda_required_unless_cpu_requested():
                "print(select_device())\n",
                {"PLATANUS_B_TPU_TORCH_DEVICE": "cpu"})
     assert res.stdout.strip() == "cpu"
+
+
+def _names_jax_package(name: str | None) -> bool:
+    return name is not None and (name == "platanus_b_tpu"
+                                 or name.startswith("platanus_b_tpu."))
+
+
+@pytest.mark.parametrize("path", _sources() + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_the_jax_package(path):
+    """No absolute import, top-level or inside a function, names the JAX
+    package or a module of it."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            assert not any(_names_jax_package(a.name) for a in node.names), \
+                (path, node.lineno)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert not _names_jax_package(node.module), (path, node.lineno)
+
+
+def test_assemble_runs_without_the_jax_package(tmp_path):
+    """Every port module, `assemble --help` and one CPU `assemble` on a
+    small simulated genome in one fresh interpreter: no module of the JAX
+    package is loaded, and the port's native IO library lies under the
+    port's build/ directory."""
+    code = textwrap.dedent(f"""\
+        import contextlib, importlib, io, os, sys
+        import numpy as np
+        sys.path.insert(0, {str(REPO / "tests")!r})
+        import simdata
+        for m in {_all_modules()!r}:
+            importlib.import_module(m)
+        from platanus_b_tpu_torch import native
+        from platanus_b_tpu_torch.commands.main import main
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                main(["assemble", "--help"])
+            except SystemExit as e:
+                assert e.code in (0, None), e.code
+        rng = np.random.default_rng(5)
+        g = simdata.random_genome(rng, 2000)
+        reads = os.path.join({str(tmp_path)!r}, "reads.fa")
+        simdata.write_fasta(reads, simdata.shotgun_reads(rng, g, 100, 20.0,
+                                                         0.002))
+        out = os.path.join({str(tmp_path)!r}, "out")
+        assert main(["assemble", "-f", reads, "-k", "25", "-o", out]) == 0
+        assert os.path.getsize(out + "_contig.fa") > 0
+        loaded = sorted(m for m in sys.modules if m == "platanus_b_tpu"
+                        or m.startswith("platanus_b_tpu."))
+        assert not loaded, loaded
+        assert "platanus_b_tpu_torch.native" in sys.modules
+        print(native._LIB)
+        """)
+    res = _run(code, {"PLATANUS_B_TPU_TORCH_DEVICE": "cpu"})
+    assert res.returncode == 0, res.stderr
+    lib = pathlib.Path(res.stdout.strip().splitlines()[-1])
+    assert lib.parent == PORT / "build", lib
+
+
+def test_native_source_is_the_reference():
+    """The port builds its IO library from a verbatim copy of the JAX
+    package's io_native.cpp."""
+    ref = REPO / "platanus_b_tpu" / "native" / "io_native.cpp"
+    assert (PORT / "native" / "io_native.cpp").read_bytes() == ref.read_bytes()

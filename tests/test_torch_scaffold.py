@@ -100,6 +100,26 @@ PINS = {
           'final_file = f"{prefix}_closed.fa.rmred"'),
          "# the combine rounds (iterate.cpp:490-549) run only for -i >= 2\n"
          'final_file = f"{cur_dir}/{o}_polished_final_divided.fa"')]),
+    # the host-only modules the port keeps its own copies of
+    "io/fasta.py": (set(), [
+        ("Fast path: the native C++ decoder (platanus_b_tpu.native) over the",
+         "Fast path: the native C++ decoder (the port's native module) over "
+         "the")]),
+    "io/reads.py": (set(), [("jax.sharding, not via per-thread files.",
+                             "the caller, not via per-thread files.")]),
+    "utils/errors.py": (set(), []),
+    "utils/constants.py": (set(), []),
+    "native/__init__.py": (set(), [
+        # the line before, "import (cached ...", reads as an import line
+        ("implementations when no compiler is available.",
+         "the pure-Python implementations when no compiler is available."),
+        ('_LIB = os.path.join(_HERE, f"_io_native_'
+         '{sys.implementation.cache_tag}.so")',
+         'BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")\n'
+         "_LIB = os.path.join(BUILD_DIR,\n"
+         '                    f"_io_native_{sys.implementation.cache_tag}'
+         '.so")'),
+        ("", "os.makedirs(BUILD_DIR, exist_ok=True)")]),
 }
 
 _IMPORT = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s)")
