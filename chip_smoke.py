@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of platanus_b_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--genome-bp 1000000|4600000] [--against DIR]
+    python3 chip_smoke.py [--genome-bp 1000000|4600000]
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -12,10 +12,7 @@ Phases, one JSON line each; any failure exits non-zero:
    (the larger of the bytes each input read once and each output written
    once take at 3.35 TB/s, and the operations take at 67 T/s), what sets
    it, and the kernel's share of it (for ungap_align with the count of ok
-   slots its bound is taken over). With --against DIR (another version's
-   kernel sources, e.g. a parent commit's platanus_b_tpu_torch/csrc
-   unpacked with git archive) each timed kernel is also timed with those
-   sources' build, in turns (other, this, this, other), on the same card;
+   slots its bound is taken over);
 3. the main path: `assemble -k 32` through the port's CLI on the parity
    dataset (parity/run_parity.py:121 simulate(genome_bp, 125, 40, 0.003,
    123)); the sorted canonical contig set must hash to the value recorded
@@ -62,7 +59,6 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASE = {"name": "start"}
-AGAINST = {"lib": None}  # --against: the other sources' kernel entry points
 
 # phase 5: the dataset of parity/gapclose_bench.py at its defaults, and the
 # round's commands (iterate_cmd.py:88-149 without solve_dbg), run from the
@@ -311,25 +307,6 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def in_turns(fn) -> dict:
-    """With --against: `fn` (a call of a kernel's wrapper) timed with the
-    other sources' build and with this one in turns (other, this, this,
-    other); {} without it."""
-    from platanus_b_tpu_torch import kernels
-    other = AGAINST["lib"]
-    if other is None:
-        return {}
-    own = kernels.library()
-    times = []
-    try:
-        for lib in (other, own, own, other):
-            kernels._lib = lib
-            times.append(cuda_ms(fn, reps=20))
-    finally:
-        kernels._lib = own
-    return {"against_ms": [times[0], times[3]], "turns_ms": times[1:3]}
-
-
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over its
     memory rate and the operations over its scalar rate."""
@@ -434,9 +411,7 @@ def check_edit_distance(dev, rng):
             n_bytes = (q.numel() + t.numel() + 4 * (ql.numel() + tl.numel())
                        + 4 * len(qs))
             rec.update(band_cells=cells,
-                       **bound(n_bytes, ED_OPS_PER_CELL * cells),
-                       **in_turns(
-                           lambda: align.edit_distance(q, t, ql, tl, bw)))
+                       **bound(n_bytes, ED_OPS_PER_CELL * cells))
             with_share(rec)
         results.append(rec)
 
@@ -518,9 +493,7 @@ def check_kmer_extract(dev, rng, main_reads):
             n_out = got.numel() * got.element_size() + 8
             W = -(-k // 16)
             rec.update(mode="nmask" if "nmask" in kw else "lengths",
-                       **bound(n_in + n_out, KMER_OPS_PER_WORD * W * windows),
-                       **in_turns(
-                           lambda: extract_kmers_packed(words, k, **kw)))
+                       **bound(n_in + n_out, KMER_OPS_PER_WORD * W * windows))
             with_share(rec)
         results.append(rec)
 
@@ -607,8 +580,7 @@ def check_ungap_align(dev, data: str):
             rec["ms"] = cuda_ms(lambda: mapper.ungap_align(*args), reps=20)
             rec["plain_ms"] = cuda_ms(lambda: mapper.ungap_align_plain(*args),
                                       reps=2)
-            rec.update(ungap_bound(args),
-                       **in_turns(lambda: mapper.ungap_align(*args)))
+            rec.update(ungap_bound(args))
             with_share(rec)
         results.append(rec)
 
@@ -717,9 +689,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-bp", type=int, default=1_000_000,
                     help="parity dataset of phase 3: 1000000 or 4600000")
-    ap.add_argument("--against", metavar="DIR",
-                    help="another version's kernel sources (*.cu): phase 2 "
-                         "also times them, in turns with these")
     args = ap.parse_args()
 
     PHASE["name"] = "environment"
@@ -743,19 +712,12 @@ def main() -> int:
     kernels.library()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_summary(kernels.BUILD_INFO.get("log", ""))
-    env = {"phase": "environment", "ok": True, "nvidia_smi": smi,
-           "torch": torch.__version__, "cuda": torch.version.cuda,
-           "device": torch.cuda.get_device_name(0),
-           "kernel_build_s": build_s,
-           "kernel_library_compiled": kernels.BUILD_INFO.get("compiled"),
-           "ptxas": ptxas}
-    if args.against:
-        check(os.path.isdir(args.against), f"--against {args.against}: no "
-              "such directory")
-        AGAINST["lib"], info = kernels.build(args.against)
-        env.update(against=args.against,
-                   against_ptxas=ptxas_summary(info["log"]))
-    emit(env)
+    emit({"phase": "environment", "ok": True, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "kernel_build_s": build_s,
+          "kernel_library_compiled": kernels.BUILD_INFO.get("compiled"),
+          "ptxas": ptxas})
 
     work = os.path.join(REPO, "platanus_b_tpu_torch", "build", "smoke")
     os.makedirs(work, exist_ok=True)

@@ -66,6 +66,7 @@ constexpr int kThreads = 256;    // 32 reads per block at most
 constexpr int kArrays = 5;       // per-read shared arrays of S*H ints
 constexpr int kChunk = 4;        // ok words (4 slots each) a lane loads at once
 constexpr size_t kBlockSmem = 96 * 1024;  // entry arrays of a block, at most
+constexpr size_t kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
 // e_info: slot index | orientation | ok | scored (no earlier ok twin) |
 // killed (an earlier live twin took its score)
 constexpr int kFwd = 1 << 24;
@@ -433,12 +434,12 @@ cudaError_t launch(const uint8_t* codes, const int* lengths, int R, int L,
                    int* out_id, int* out_ro, float* out_ident, int* out_mis,
                    int* out_span, int reads, size_t smem,
                    cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            ungap_align_kernel<NS>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-    }
+    // raise the instance's cap once to the card's most; a launch asks for
+    // only what it uses, so the cap does not change its occupancy
+    static const cudaError_t cap = cudaFuncSetAttribute(
+        ungap_align_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxSmem);
+    if (cap != cudaSuccess) return cap;
     unsigned blocks = (unsigned)((R + reads - 1) / reads);
     ungap_align_kernel<NS><<<blocks, kLanes * reads, smem, stream>>>(
         codes, lengths, R, L, codes_aligned, pool, pool_n, pool_words, starts,
@@ -467,7 +468,7 @@ extern "C" int platanus_ungap_align(const void* codes, const void* lengths,
     if (R <= 0) return 0;
     const size_t per_read = (size_t)kArrays * SH * sizeof(int);
     if (L <= 0 || SH <= 0 || SH >= kFwd || pool_n <= 0 ||
-        per_read > 232448)
+        per_read > kMaxSmem)
         return (int)cudaErrorInvalidValue;
     int reads = kThreads / kLanes;  // reads per block
     while (reads > 1 && reads * per_read > kBlockSmem) reads >>= 1;

@@ -69,8 +69,8 @@ def _nvcc() -> str:
     return found
 
 
-def _sources(csrc: str) -> list[str]:
-    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _target(src: str) -> str:
@@ -82,13 +82,14 @@ def _target(src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build(csrc: str = CSRC) -> tuple[SimpleNamespace, dict]:
-    """The C entry points of the *.cu sources under `csrc`, each compiled
-    by its own nvcc, all at once, into BUILD_DIR (reused while a source is
-    unchanged); and the build's record (paths, seconds, compiled, log)."""
+def library() -> SimpleNamespace:
+    """The kernels' C entry points, built from csrc/ on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    todo = [(src, _target(src)) for src in _sources(csrc)]
+    todo = [(src, _target(src)) for src in _sources()]
     procs = []
     for src, so in todo:
         if not os.path.exists(so):
@@ -106,9 +107,9 @@ def build(csrc: str = CSRC) -> tuple[SimpleNamespace, dict]:
             os.replace(tmp, so)
     if failed:
         raise KernelError("nvcc failed: " + "\n".join(failed))
-    info = dict(paths=[so for _s, so in todo],
-                seconds=time.perf_counter() - t0,
-                compiled=bool(procs), log="\n".join(logs))
+    BUILD_INFO.update(paths=[so for _s, so in todo],
+                      seconds=time.perf_counter() - t0,
+                      compiled=bool(procs), log="\n".join(logs))
     fns = {}
     for _src, so in todo:
         cdll = ctypes.CDLL(so)
@@ -120,15 +121,7 @@ def build(csrc: str = CSRC) -> tuple[SimpleNamespace, dict]:
     missing = sorted(set(_SIGNATURES) - set(fns))
     if missing:
         raise KernelError(f"kernel library lacks {missing}")
-    return SimpleNamespace(**fns), info
-
-
-def library() -> SimpleNamespace:
-    """The kernels' C entry points, built from csrc/ on first use."""
-    global _lib
-    if _lib is None:
-        _lib, info = build()
-        BUILD_INFO.update(info)
+    _lib = SimpleNamespace(**fns)
     return _lib
 
 
