@@ -12,7 +12,9 @@ Phases, one JSON line each; any failure exits non-zero:
    (the larger of the bytes each input read once and each output written
    once take at 3.35 TB/s, and the operations take at 67 T/s), what sets
    it, and the kernel's share of it (for ungap_align with the count of ok
-   slots its bound is taken over);
+   slots its bound is taken over; for edit_distance with the diagonals of
+   its longest pair and the time per diagonal, since that serial chain and
+   not the bound sets its time), and edit_distance on one set per tier;
 3. the main path: `assemble -k 32` through the port's CLI on the parity
    dataset (parity/run_parity.py:121 simulate(genome_bp, 125, 40, 0.003,
    123)); the sorted canonical contig set must hash to the value recorded
@@ -35,9 +37,16 @@ Phases, one JSON line each; any failure exits non-zero:
    every file it writes must hash to smoke_expected.json, kmer_extract and
    ungap_align must have run, and the scaffolder must have joined contigs;
    then its solve_dbg stage once more under torch.profiler for the card's
-   busy share.
+   busy share;
+7. the phasing flow: the default `solve_dbg -c contigs.fa -o phase` (no
+   -unphase) on a 1 Mbp homozygous contig and two 200 kbp haplotypes 0.3 %
+   apart (simulate.simulate_phase_contigs); its haplotig pairing aligns
+   each haplotype with the asm10 long-read aligner, whose segments go
+   through edit_distance at band 128 in one launch. The six phasing files
+   must hash to smoke_expected.json, edit_distance and kmer_extract must
+   have run; it prints the segments and their longest pair's diagonals.
 
-Each of phases 3-6 sets the launch counts to 0 just before it and reads
+Each of phases 3-7 sets the launch counts to 0 just before it and reads
 them just after. Then a {"kernels": [...]} line, the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Without a CUDA card it exits
 1 and prints no result. Working files go under
@@ -84,6 +93,15 @@ ROUND_STEPS = [
 ITERATE_INPUTS = ("contigs.fa", "r1.fa", "r2.fa")
 ITERATE_ARGV = ["iterate", "-i", "1", "-o", "it", "-c", "contigs.fa", "-IP1",
                 "r1.fa", "r2.fa"]
+
+# phase 7: the phasing flow (the default solve_dbg) on a bacterial assembly
+# with one heterozygous region, from the work directory
+PHASING_DATASET = {"homo_bp": 1_000_000, "hap_bp": 200_000, "het_rate": 0.003,
+                   "seed": 5}
+PHASING_ARGV = ["solve_dbg", "-c", "contigs.fa", "-o", "phase"]
+PHASING_OUTPUTS = ("primaryBubble.fa", "secondaryBubble.fa",
+                   "nonBubbleHetero.fa", "nonBubbleOther.fa",
+                   "bubbleRelation.tsv", "phasedScaffoldComponent.bed")
 
 
 def emit(obj: dict) -> None:
@@ -278,6 +296,40 @@ def fasta_count(path: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 7 helpers (also used by tests/torch_smoke_expected.py)
+# ---------------------------------------------------------------------------
+
+def make_phasing_contigs(work: str, ds: dict) -> str:
+    """PHASING_DATASET's contigs.fa in `work`; returns its sha256."""
+    from platanus_b_tpu_torch.simulate import simulate_phase_contigs
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "contigs.fa")
+    simulate_phase_contigs(path, ds["homo_bp"], ds["hap_bp"], ds["het_rate"],
+                           ds["seed"])
+    return file_sha256(path)
+
+
+def run_phasing(work: str, cli_main) -> float:
+    """PHASING_ARGV through `cli_main` from `work`; returns its wall (s)."""
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(list(PHASING_ARGV))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(PHASING_ARGV)} exited {rc}")
+    finally:
+        os.chdir(cwd)
+    return wall
+
+
+def phasing_hashes(work: str) -> dict:
+    return {name: file_sha256(os.path.join(work, f"phase_{name}"))
+            for name in PHASING_OUTPUTS}
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -410,8 +462,13 @@ def check_edit_distance(dev, rng):
             cells = band_cells(qs, ts, bw)
             n_bytes = (q.numel() + t.numel() + 4 * (ql.numel() + tl.numel())
                        + 4 * len(qs))
+            # the serial chain: the longest pair's dependent diagonals
+            diagonals = max(max(len(x) + len(y) - 1, 0)
+                            for x, y in zip(qs, ts))
             rec.update(band_cells=cells,
-                       **bound(n_bytes, ED_OPS_PER_CELL * cells))
+                       **bound(n_bytes, ED_OPS_PER_CELL * cells),
+                       longest_pair_diagonals=diagonals,
+                       ns_per_diagonal=1e6 * rec["ms"] / max(diagonals, 1))
             with_share(rec)
         results.append(rec)
 
@@ -422,9 +479,25 @@ def check_edit_distance(dev, rng):
     lens[0] = 133
     qs, ts = _pair_set(rng, lens, (4, 3, 3))
     run("bubble", qs, ts, band_width(2 * max(len(s) for s in qs)), timed=True)
-    # long-read segments (SEG_SPAN / SEG_BAND, longread.py:352-353)
+    # long-read segments (SEG_SPAN / SEG_BAND, longread.py:366-367)
     qs, ts = _pair_set(rng, rng.integers(1000, 1049, size=131), (20, 8, 8))
     run("segment", qs, ts, band_width(128), timed=True)
+    # the phasing flow's launch in phase 7: asm10's segments (seg_span 256,
+    # at most 303 bases) of haplotypes 0.3 % apart, at band 128
+    qs, ts = _pair_set(rng, rng.integers(256, 304, size=3045), (2, 0, 0))
+    run("phase_segments", qs, ts, band_width(128), timed=True)
+    # one set per tier: each register tier (rows a lane 1..16), the band in
+    # shared memory, the band in global scratch with rows read from global
+    # memory, and rows too long to stage at a narrow band
+    lens = [n for n in (20, 50, 100, 180, 250, 380, 470) for _ in range(2)]
+    qs, ts = _pair_set(rng, np.array(lens), (6, 3, 3))
+    run("register_tiers", qs, ts, band_width(512))
+    qs, ts = _pair_set(rng, rng.integers(520, 1500, size=12), (12, 6, 6))
+    run("shared_band", qs, ts, band_width(2048))
+    qs, ts = _pair_set(rng, [19800, 19900, 300, 40], (40, 10, 10))
+    run("global_band", qs, ts, band_width(20000))
+    qs, ts = _pair_set(rng, [17000, 17300, 60], (30, 10, 10))
+    run("unstaged", qs, ts, band_width(128))
     # the seven cases of tests/test_pallas_align.py
     r = np.random.default_rng(0)
     a = r.integers(0, 4, size=200, dtype=np.uint8)
@@ -915,6 +988,66 @@ def main() -> int:
         0.0, 1.0 - prec["device_busy_ms"] / (1000.0 * stage_walls[stage]))
     emit({"phase": "iterate_profiled", "ok": True, "stage": stage,
           "solve_dbg": prec})
+
+    # ---- phase 7: the phasing flow (the default solve_dbg)
+    PHASE["name"] = "phasing"
+    pexp = exp.get("phasing")
+    check(pexp is not None, "smoke_expected.json has no phasing record")
+    ph_work = os.path.join(work, "phasing")
+    shutil.rmtree(ph_work, ignore_errors=True)
+    contigs_sha = make_phasing_contigs(ph_work, PHASING_DATASET)
+    check(PHASING_DATASET == pexp["dataset"]
+          and contigs_sha == pexp["contigs_sha256"]
+          and PHASING_ARGV == pexp["argv"],
+          "the phasing input differs from the one smoke_expected.json was "
+          "made from")
+    # the segments each K1 call verifies, and the walls (host clock, the
+    # results come back to the host) of those calls and of the haplotig
+    # alignment around them
+    from platanus_b_tpu_torch.models.longread import LongReadAligner
+    from platanus_b_tpu_torch.ops import align
+    segments, walls = [], {"haplotig alignment": 0.0, "edit_distance calls": 0.0}
+    banded, align_batch = align.banded_edit_distance, LongReadAligner.align_batch
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                walls[key] += time.perf_counter() - t0
+        return wrapper
+
+    def recording(queries, targets, *a, **kw):
+        segments.append((len(queries), max(len(x) + len(y) - 1
+                                           for x, y in zip(queries, targets))))
+        return banded(queries, targets, *a, **kw)
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    steps = {}
+    align.banded_edit_distance = timed("edit_distance calls", recording)
+    LongReadAligner.align_batch = timed("haplotig alignment", align_batch)
+    try:
+        run_phasing(ph_work, lambda argv: run_cli(argv, steps))
+    finally:
+        align.banded_edit_distance = banded
+        LongReadAligner.align_batch = align_batch
+    launches["phasing"] = dict(kernels.LAUNCHES)
+    hashes = phasing_hashes(ph_work)
+    rec = steps["solve_dbg"]
+    ok = hashes == pexp["sha256"]
+    emit({"phase": "phasing", "ok": ok, "wall_s": rec["wall_s"],
+          "stage_walls_s": walls, "peak_device_gib": rec["peak_device_gib"],
+          "launches": launches["phasing"],
+          "segments": [n for n, _ in segments],
+          "longest_pair_diagonals": max((m for _, m in segments), default=0),
+          "sha256": hashes, "expected_sha256": pexp["sha256"],
+          "jax_cpu_wall_s": pexp.get("jax_cpu_wall_s")})
+    check(ok, "phasing outputs differ from smoke_expected.json")
+    for name in ("edit_distance", "kmer_extract"):
+        check(launches["phasing"][name] > 0,
+              f"{name} never launched in the phasing flow")
 
     PHASE["name"] = "summary"
     for name, entry in kern.items():

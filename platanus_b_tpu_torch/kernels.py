@@ -41,7 +41,7 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "platanus_edit_distance": (_ci, [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci,
                                      _vp, _vp, _vp]),
-    "platanus_edit_distance_uses_smem": (_ci, [_ci]),
+    "platanus_edit_distance_scratch_ints": (ctypes.c_longlong, [_ci, _ci, _ci]),
     "platanus_kmer_extract": (_ci, [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci,
                                     _ci, _vp, _vp, _vp]),
     "platanus_ungap_align": (_ci, [_vp, _vp, _ci, _ci, _vp, _ci, _vp, _vp,
@@ -141,8 +141,11 @@ def edit_distance(q: torch.Tensor, t: torch.Tensor, qlens: torch.Tensor,
     B, Lq = q.shape
     Lt = t.shape[1]
     scratch = None
-    if not lib.platanus_edit_distance_uses_smem(bw):
-        scratch = torch.empty(B * 3 * (bw + 3), dtype=torch.int32,
+    per_pair = lib.platanus_edit_distance_scratch_ints(bw, Lq, Lt)
+    if per_pair:
+        # the wide tier's diagonal buffers, where shared memory cannot hold
+        # them (min(bw, Lq) above about 19,000 cells)
+        scratch = torch.empty(B * per_pair, dtype=torch.int32,
                               device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.platanus_edit_distance(

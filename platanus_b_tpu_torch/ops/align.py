@@ -29,9 +29,15 @@ def band_width(band: int) -> int:
 
 
 def edit_distance_plain(q: torch.Tensor, t: torch.Tensor, qlens: torch.Tensor,
-                        tlens: torch.Tensor, bw: int) -> torch.Tensor:
+                        tlens: torch.Tensor, bw: int,
+                        width_limited: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the edit_distance kernel (same DP, same
-    band placement, same BIG arithmetic as _bed_kernel)."""
+    band placement, same BIG arithmetic as _bed_kernel).
+
+    With `width_limited`, only the first min(bw, longest qlen) band cells
+    are computed, as the kernel computes min(bw, qlen) of each pair: a cell
+    past qlen is infeasible, and no cell reads further than one cell to its
+    right, so the result is the same."""
     B, Lq = q.shape
     Lt = t.shape[1]
     dev = q.device
@@ -45,11 +51,12 @@ def edit_distance_plain(q: torch.Tensor, t: torch.Tensor, qlens: torch.Tensor,
     denom = torch.clamp(ql + tl - 1, min=1)
     d_last = ql + tl - 2
     half = bw // 2
-    col = torch.arange(bw, device=dev)[None, :]
+    width = max(1, min(bw, int(ql.max()))) if width_limited else bw
+    col = torch.arange(width, device=dev)[None, :]
     qx = q.to(torch.int64)
     tx = t.to(torch.int64)
     big_col = torch.full((B, 1), BIG, dtype=torch.int64, device=dev)
-    d1 = torch.full((B, bw + 3), BIG, dtype=torch.int64, device=dev)
+    d1 = torch.full((B, width + 3), BIG, dtype=torch.int64, device=dev)
     d2 = d1.clone()
     out = torch.full((B,), BIG, dtype=torch.int64, device=dev)
 
@@ -78,7 +85,7 @@ def edit_distance_plain(q: torch.Tensor, t: torch.Tensor, qlens: torch.Tensor,
         ins_v = torch.where(j == 0, i + 1, ins_p)
         new = torch.minimum(sub_v + cost, torch.minimum(del_v, ins_v) + 1)
         new = torch.where(feasible, new, BIG)
-        r_star = (ql - 1 - lo).clamp(0, bw - 1)[:, None]
+        r_star = (ql - 1 - lo).clamp(0, width - 1)[:, None]
         captured = new.gather(1, r_star)[:, 0]
         out = torch.where(d_last == d, captured, out)
         d2 = d1
@@ -128,10 +135,11 @@ def _pad_rows(seqs, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def banded_edit_distance(queries: list[np.ndarray], targets: list[np.ndarray],
-                         band: int = 128, device="cpu") -> np.ndarray:
+                         band: int = 128, *, device) -> np.ndarray:
     """Edit distance of each (query, target) pair within a diagonal band
     (pallas_align.py:180): exact when the optimal alignment stays inside
-    the band, an upper bound otherwise. Returns (n,) int32."""
+    the band, an upper bound otherwise. Runs on `device` (the kernel on a
+    card, the plain version on the CPU). Returns (n,) int32."""
     assert len(queries) == len(targets)
     if not queries:
         return np.zeros(0, np.int32)

@@ -10,6 +10,10 @@ numpy only, so the JAX package and the port can be fed identical files.
   substitutions at `het_rate` (every mutated base changes, the model of
   tests/simdata.py:mutate), reads drawn from each haplotype as above; it
   makes the bubbles that `assemble -u` crushes.
+- ``simulate_phase_contigs``: the contig set of the phasing flow's test
+  (tests/test_phase.py:50-57) at bacterial scale: a homozygous contig and
+  two haplotypes of one heterozygous region, the second carrying
+  substitutions at `het_rate`, headed with coverages 40, 21 and 19.
 - ``ungap_edge_inputs``: inputs of the ungap_align kernel that reach its
   edge cases (reads shorter than a seed, N codes, slots at contig ends in
   both orientations, duplicate slots across seeds, tied maxima, and with
@@ -67,6 +71,24 @@ def simulate_two_haplotypes(path: str, genome_size: int, het_rate: float,
     r2 = _sample_reads(rng, h2, read_len, coverage_each, error)
     _write_fasta(path, np.concatenate([r1, r2]))
     return (_BASES[h1].tobytes().decode(), _BASES[h2].tobytes().decode())
+
+
+def simulate_phase_contigs(path: str, homo_bp: int, hap_bp: int,
+                           het_rate: float, seed: int) -> None:
+    """Write contigs.fa at `path` for `solve_dbg -c` (its default phasing
+    flow): seq1 homozygous (cov40), seq2 haplotype 1 (cov21), seq3
+    haplotype 1 with substitutions at `het_rate` (cov19), one line each."""
+    rng = np.random.default_rng(seed)
+    homo = rng.integers(0, 4, size=homo_bp, dtype=np.uint8)
+    h1 = rng.integers(0, 4, size=hap_bp, dtype=np.uint8)
+    h2 = h1.copy()
+    snp = rng.random(hap_bp) < het_rate
+    h2[snp] = (h2[snp] + rng.integers(1, 4, size=int(snp.sum()))) % 4
+    with open(path, "w") as f:
+        for i, (seq, cov) in enumerate(((homo, 40), (h1, 21), (h2, 19)),
+                                       start=1):
+            f.write(f">seq{i}_len{len(seq)}_cov{cov}_read100_maxK50\n"
+                    f"{_BASES[seq].tobytes().decode()}\n")
 
 
 def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,

@@ -175,17 +175,83 @@ def test_ungap_align_kernel_matches_plain(dev, seed, width, min_identity):
     assert 0 < int((got[0] != 0).sum()) < len(got[0])
 
 
-@pytest.mark.parametrize("band", [128, 640, 20000])
-def test_edit_distance_kernel_matches_plain(dev, band):
-    """Diagonals in shared memory (128, 640) and in global scratch (20000)."""
-    rng = np.random.default_rng(band)
-    qs = [rng.integers(0, 4, size=int(rng.integers(1, 300)), dtype=np.uint8)
-          for _ in range(37)]
-    ts = [_mutate(rng, x, 3, 2, 1) for x in qs]
-    qs[5] = np.zeros(0, np.uint8)
+def _random_pairs(rng, n, lo, hi, edits=(3, 2, 1)):
+    qs = [rng.integers(0, 4, size=int(rng.integers(lo, hi)), dtype=np.uint8)
+          for _ in range(n)]
+    return qs, [_mutate(rng, x, *edits) for x in qs]
+
+
+def _edit_distance_case(shape, rng):
+    """(queries, targets) that reach one tier of csrc/edit_distance.cu (the
+    tier follows each pair's width min(bw, qlen)), or one of its edges."""
+    if shape == "random":                 # pairs under 300 bases
+        qs, ts = _random_pairs(rng, 37, 1, 300)
+        qs[5] = np.zeros(0, np.uint8)
+    elif shape == "bubble":               # crush_bubble: one-base SNP middles
+        qs, ts = _random_pairs(rng, 60, 1, 2, (1, 0, 0))
+        q2, t2 = _random_pairs(rng, 6, 2, 134, (4, 3, 3))
+        qs, ts = qs + q2, ts + t2
+        qs[0] = rng.integers(0, 4, size=133, dtype=np.uint8)
+        ts[0] = _mutate(rng, qs[0], 4, 3, 3)
+    elif shape == "segment":              # long-read segments, band 128
+        qs, ts = _random_pairs(rng, 40, 1000, 2100, (20, 8, 8))
+    elif shape == "register_tiers":       # one pair per register tier
+        qs, ts = [], []
+        for n in (20, 50, 100, 180, 250, 380, 470):
+            q2, t2 = _random_pairs(rng, 2, n, n + 12, (6, 3, 3))
+            qs, ts = qs + q2, ts + t2
+    elif shape == "shared_band":          # wider than the register tiers
+        qs, ts = _random_pairs(rng, 9, 520, 1500, (12, 6, 6))
+        q2, t2 = _random_pairs(rng, 3, 10, 400)
+        qs, ts = qs + q2, ts + t2
+    elif shape == "global_band":          # buffers in scratch, rows unstaged
+        qs, ts = _random_pairs(rng, 2, 19600, 20000, (40, 10, 10))
+        q2, t2 = _random_pairs(rng, 3, 1, 900)
+        qs, ts = qs + q2, ts + t2
+    elif shape == "unstaged":             # rows too long to stage, band 128
+        qs, ts = _random_pairs(rng, 2, 17000, 17400, (30, 10, 10))
+    else:                                 # edges at band 128
+        x = rng.integers(0, 4, size=400, dtype=np.uint8)
+        shifted = np.concatenate([rng.integers(0, 4, size=300,
+                                               dtype=np.uint8), x])
+        n_codes = x[:200].copy()
+        n_codes[::5] = 4
+        e = np.zeros(0, np.uint8)
+        qs = [x, x, x[:30], n_codes, np.full(40, 4, np.uint8), e, x[:3], e]
+        ts = [shifted, x[:30], x, _mutate(rng, x[:200], 3, 1, 1),
+              np.full(40, 4, np.uint8), x[:5], e, e]
+    return qs, ts
+
+
+@pytest.mark.parametrize("band,shape", [
+    pytest.param(128, "random", id="128"),
+    pytest.param(640, "random", id="640"),
+    pytest.param(20000, "random", id="20000"),
+    pytest.param(384, "bubble", id="bubble_384"),
+    pytest.param(128, "segment", id="segment_128"),
+    pytest.param(512, "register_tiers", id="register_tiers_512"),
+    pytest.param(2048, "shared_band", id="shared_band_2048"),
+    pytest.param(20096, "global_band", id="global_band_20096"),
+    pytest.param(128, "unstaged", id="unstaged_128"),
+    pytest.param(128, "edges", id="edges_128"),
+    pytest.param(384, "edges", id="edges_384")])
+def test_edit_distance_kernel_matches_plain(dev, band, shape):
+    """Every tier: registers (one to 16 cells a lane), the band in shared
+    memory, the band in global scratch with rows read from global memory;
+    qlen >> tlen and tlen >> qlen, a band too narrow for the optimal path,
+    codes >= 4 and empty sides."""
+    qs, ts = _edit_distance_case(shape, np.random.default_rng(band))
+    before = kernels.LAUNCHES["edit_distance"]
     got = talign.banded_edit_distance(qs, ts, band=band, device=dev)
-    want = talign.banded_edit_distance(qs, ts, band=band)
-    assert got.tolist() == want.tolist()
+    assert kernels.LAUNCHES["edit_distance"] == before + 1
+    q, ql = talign._pad_rows(qs, dev)
+    t, tl = talign._pad_rows(ts, dev)
+    want = talign.edit_distance_plain(q, t, ql, tl, talign.band_width(band))
+    assert got.tolist() == want.cpu().tolist()
+    if shape == "edges":   # the optimal path leaves band 128, not 384
+        true = talign.edit_distance_np(qs[0], ts[0])
+        assert (got[0] > true) if band == 128 else (got[0] == true)
+        assert got.tolist()[-3:] == [5, 3, 0]
 
 
 def test_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):

@@ -1,9 +1,9 @@
 """Write platanus_b_tpu_torch/smoke_expected.json: the JAX package's outputs
 for chip_smoke.py's bubble configuration (phase 4), its iterate round
-without solve_dbg (phase 5) and its `iterate -i 1` (phase 6), computed on
-the CPU.
+without solve_dbg (phase 5), its `iterate -i 1` (phase 6) and its phasing
+flow (phase 7, the default solve_dbg), computed on the CPU.
 
-    python tests/torch_smoke_expected.py [--part all|bubble|round|iterate] [--check-port]
+    python tests/torch_smoke_expected.py [--part all|bubble|round|iterate|phasing] [--check-port]
 
 The datasets come from platanus_b_tpu_torch.simulate and tests/simdata.py
 (numpy only), so the JAX package here and the port on the card read
@@ -116,9 +116,35 @@ def iterate_record(tmp: str, check_port: bool) -> dict:
             "jax_cpu_wall_s": round(wall, 1)}
 
 
+def phasing_record(tmp: str, check_port: bool) -> dict:
+    import chip_smoke
+    from platanus_b_tpu.commands.main import main as jax_main
+
+    ds = chip_smoke.PHASING_DATASET
+    jax_dir = os.path.join(tmp, "jax_phase")
+    contigs = chip_smoke.make_phasing_contigs(jax_dir, ds)
+    wall = chip_smoke.run_phasing(jax_dir, jax_main)
+    sha = chip_smoke.phasing_hashes(jax_dir)
+    if check_port:
+        from platanus_b_tpu_torch.commands.main import main as port_main
+        port_dir = os.path.join(tmp, "port_phase")
+        chip_smoke.make_phasing_contigs(port_dir, ds)
+        chip_smoke.run_phasing(port_dir, port_main)
+        port = chip_smoke.phasing_hashes(port_dir)
+        print("phasing: port on CPU matches:", port == sha)
+        assert port == sha, "phasing: the port's CPU bytes differ"
+    return {"dataset": ds, "contigs_sha256": contigs,
+            "argv": chip_smoke.PHASING_ARGV, "sha256": sha,
+            "made_by": "JAX package on the CPU (platanus_b_tpu solve_dbg "
+                       "from the work directory; segment verification on "
+                       "the host at band 64)",
+            "jax_cpu_wall_s": round(wall, 1)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("all", "bubble", "round", "iterate"), default="all")
+    ap.add_argument("--part", choices=("all", "bubble", "round", "iterate",
+                                       "phasing"), default="all")
     ap.add_argument("--check-port", action="store_true")
     args = ap.parse_args()
     os.environ["PLATANUS_B_TPU_PLATFORM"] = "cpu"
@@ -134,6 +160,8 @@ def main() -> int:
             record["round"] = round_record(tmp, args.check_port)
         if args.part in ("all", "iterate"):
             record["iterate"] = iterate_record(tmp, args.check_port)
+        if args.part in ("all", "phasing"):
+            record["phasing"] = phasing_record(tmp, args.check_port)
     record["command"] = "python tests/torch_smoke_expected.py"
     with open(OUT, "w") as f:
         json.dump(record, f, indent=1)
