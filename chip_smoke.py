@@ -44,9 +44,24 @@ Phases, one JSON line each; any failure exits non-zero:
    each haplotype with the asm10 long-read aligner, whose segments go
    through edit_distance at band 128 in one launch. The six phasing files
    must hash to smoke_expected.json, edit_distance and kmer_extract must
-   have run; it prints the segments and their longest pair's diagonals.
+   have run; it prints the segments and their longest pair's diagonals;
+8. the hybrid pipeline of README.md: `iterate -i 2 -o hy -c contigs.fa
+   -IP1 r1.fa r2.fa -ont ont.fa` on the genome and read pairs of
+   parity/PARITY_iterate_1000000.json (1 Mbp, 125 bp pairs, 40x), the
+   genome cut into 10-30 kbp contigs with 50-500 bp dropped between them
+   (simulate.simulate_fragmented_contigs), and 10x ONT-like long reads
+   with 2 % errors, indels included (simulate.simulate_long_reads). Both
+   rounds and the final divide align the long reads with the map-ont
+   preset (kmer_extract in the sketch, the chaining DP, edit_distance at
+   band 128), round 2 merges and extends, and round 1's result is
+   combined once (asm10). Every file iterate writes must hash to
+   smoke_expected.json (made by the JAX package with its non-CPU
+   segment verification forced), and edit_distance, kmer_extract and
+   ungap_align must have run. It prints the wall, each stage's wall, the
+   walls of the aligner's parts, the segments of each edit_distance call
+   and their longest pair's diagonals.
 
-Each of phases 3-7 sets the launch counts to 0 just before it and reads
+Each of phases 3-8 sets the launch counts to 0 just before it and reads
 them just after. Then a {"kernels": [...]} line, the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Without a CUDA card it exits
 1 and prints no result. Working files go under
@@ -56,6 +71,7 @@ platanus_b_tpu_torch/build/smoke/.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -102,6 +118,23 @@ PHASING_ARGV = ["solve_dbg", "-c", "contigs.fa", "-o", "phase"]
 PHASING_OUTPUTS = ("primaryBubble.fa", "secondaryBubble.fa",
                    "nonBubbleHetero.fa", "nonBubbleOther.fa",
                    "bubbleRelation.tsv", "phasedScaffoldComponent.bed")
+
+# phase 8: the hybrid `iterate` (README.md's main pipeline) on the genome and
+# read pairs of parity/PARITY_iterate_1000000.json (parity/run_parity.py
+# simulate_paired: tests/simdata.py in its generator order), the genome cut
+# into contigs of 10-30 kbp with 50-500 bp dropped between them, and
+# ONT-like long reads (10x, exponential lengths of mean 8 kbp and at least
+# 1 kbp, 1 % substitutions, 0.5 % insertions, 0.5 % deletions, both
+# strands); from the work directory
+HYBRID_DATASET = {"genome_bp": 1_000_000, "read_len": 125, "insert": 400,
+                  "sd": 50, "coverage": 40.0, "error": 0.003, "seed": 123,
+                  "contig_bp": [10_000, 30_000], "dropped_bp": [50, 500],
+                  "contig_seed": 6, "max_k": 63, "ont_coverage": 10.0,
+                  "ont_mean_bp": 8000, "ont_sub": 0.01, "ont_ins": 0.005,
+                  "ont_del": 0.005, "ont_seed": 7}
+HYBRID_INPUTS = ("contigs.fa", "r1.fa", "r2.fa", "ont.fa")
+HYBRID_ARGV = ["iterate", "-i", "2", "-o", "hy", "-c", "contigs.fa", "-IP1",
+               "r1.fa", "r2.fa", "-ont", "ont.fa"]
 
 
 def emit(obj: dict) -> None:
@@ -277,12 +310,12 @@ def run_iterate(work: str, data: str, cli_main) -> float:
     return wall
 
 
-def iterate_hashes(work: str) -> dict:
-    """sha256 of every file `iterate` wrote: the final assembly and each
-    file under its intermediate-results directory, by relative path."""
-    out = {"it_iterativeAssembly.fa":
-           file_sha256(os.path.join(work, "it_iterativeAssembly.fa"))}
-    inter = os.path.join(work, "it_iterateIntermediateResults")
+def iterate_hashes(work: str, o: str = "it") -> dict:
+    """sha256 of every file `iterate -o <o>` wrote: the final assembly and
+    each file under its intermediate-results directory, by relative path."""
+    out = {f"{o}_iterativeAssembly.fa":
+           file_sha256(os.path.join(work, f"{o}_iterativeAssembly.fa"))}
+    inter = os.path.join(work, f"{o}_iterateIntermediateResults")
     for root, _dirs, files in os.walk(inter):
         for name in files:
             path = os.path.join(root, name)
@@ -309,24 +342,108 @@ def make_phasing_contigs(work: str, ds: dict) -> str:
     return file_sha256(path)
 
 
-def run_phasing(work: str, cli_main) -> float:
-    """PHASING_ARGV through `cli_main` from `work`; returns its wall (s)."""
+def run_from(work: str, argv: list[str], cli_main) -> float:
+    """argv through `cli_main` from `work`; returns its wall (s)."""
     cwd = os.getcwd()
     os.chdir(work)
     try:
         t0 = time.perf_counter()
-        rc = cli_main(list(PHASING_ARGV))
+        rc = cli_main(list(argv))
         wall = time.perf_counter() - t0
         if rc != 0:
-            raise RuntimeError(f"{' '.join(PHASING_ARGV)} exited {rc}")
+            raise RuntimeError(f"{' '.join(argv)} exited {rc}")
     finally:
         os.chdir(cwd)
     return wall
 
 
+def run_phasing(work: str, cli_main) -> float:
+    """PHASING_ARGV through `cli_main` from `work`; returns its wall (s)."""
+    return run_from(work, PHASING_ARGV, cli_main)
+
+
 def phasing_hashes(work: str) -> dict:
     return {name: file_sha256(os.path.join(work, f"phase_{name}"))
             for name in PHASING_OUTPUTS}
+
+
+# ---------------------------------------------------------------------------
+# phase 8 helpers (also used by tests/torch_smoke_expected.py)
+# ---------------------------------------------------------------------------
+
+def make_hybrid_dataset(work: str, ds: dict) -> dict:
+    """HYBRID_INPUTS in `work` from HYBRID_DATASET; returns their sha256."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import simdata
+
+    from platanus_b_tpu_torch.simulate import (simulate_fragmented_contigs,
+                                               simulate_long_reads)
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(ds["seed"])
+    genome = simdata.random_genome(rng, ds["genome_bp"])
+    fwd, rev = simdata.paired_reads(rng, genome, ds["read_len"], ds["insert"],
+                                    ds["sd"], ds["coverage"],
+                                    error_rate=ds["error"])
+    simdata.write_fasta(os.path.join(work, "r1.fa"), fwd)
+    simdata.write_fasta(os.path.join(work, "r2.fa"), rev)
+    del fwd, rev
+    simulate_fragmented_contigs(os.path.join(work, "contigs.fa"), genome,
+                                *ds["contig_bp"], *ds["dropped_bp"],
+                                ds["contig_seed"], ds["read_len"],
+                                ds["max_k"])
+    simulate_long_reads(os.path.join(work, "ont.fa"), genome,
+                        ds["ont_coverage"], ds["ont_mean_bp"], ds["ont_sub"],
+                        ds["ont_ins"], ds["ont_del"], ds["ont_seed"])
+    return {name: file_sha256(os.path.join(work, name))
+            for name in HYBRID_INPUTS}
+
+
+@contextlib.contextmanager
+def aligner_split(walls: dict, segments: list):
+    """Wrap the parts of the port's long-read aligner so that each call
+    adds its host wall (s; the results come back to the host) to
+    walls[part]: align_batch whole, the minimizer sketch, anchor
+    collection, the chaining DP, segment verification, and inside it the
+    K1 calls, the host re-measures (hetero.align_scaffold) and the affine
+    scores. Each K1 call appends (segments, longest pair's diagonals)."""
+    from platanus_b_tpu_torch.models import hetero, longread
+    from platanus_b_tpu_torch.ops import align
+    aligner = longread.LongReadAligner
+    parts = {"align_batch": (aligner, "align_batch"),
+             "sketch": (longread, "sketch"),
+             "collect_groups": (aligner, "_collect_groups"),
+             "chain_groups": (aligner, "_chain_groups"),
+             "verify": (longread, "verify_alignments_batched"),
+             "edit_distance calls": (align, "banded_edit_distance"),
+             "host re-measure": (hetero, "align_scaffold"),
+             "affine scores": (longread, "_affine_scores_batched")}
+    saved = {name: getattr(obj, attr) for name, (obj, attr) in parts.items()}
+    depth = {"verify": 0}
+
+    def wrap(name, fn):
+        def wrapper(*a, **kw):
+            if name == "host re-measure" and not depth["verify"]:
+                return fn(*a, **kw)
+            if name == "edit_distance calls":
+                segments.append((len(a[0]), max(
+                    (len(x) + len(y) - 1 for x, y in zip(a[0], a[1])),
+                    default=0)))
+            depth["verify"] += name == "verify"
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+                depth["verify"] -= name == "verify"
+        return wrapper
+
+    for name, (obj, attr) in parts.items():
+        setattr(obj, attr, wrap(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, (obj, attr) in parts.items():
+            setattr(obj, attr, saved[name])
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +533,9 @@ def _pair_set(rng, lengths, edits):
 # kernels' sources (compares, mins, adds, shifts, masks); they only decide
 # whether the bound is set by operations or by bytes
 ED_OPS_PER_CELL = 8
+# segments in the largest of phase 8's edit_distance launches
+# (smoke_expected.json, hybrid, segments_per_call)
+HYBRID_SEGMENTS = 10_453
 KMER_OPS_PER_WORD = 24
 UNGAP_OPS_PER_BASE = 4
 
@@ -486,6 +606,11 @@ def check_edit_distance(dev, rng):
     # at most 303 bases) of haplotypes 0.3 % apart, at band 128
     qs, ts = _pair_set(rng, rng.integers(256, 304, size=3045), (2, 0, 0))
     run("phase_segments", qs, ts, band_width(128), timed=True)
+    # phase 8's launches: map-ont segments (seg_span 1024, up to about
+    # 1.1 kbp) of reads with 2 % errors, indels included, at band 128
+    qs, ts = _pair_set(rng, rng.integers(900, 1101, size=HYBRID_SEGMENTS),
+                       (11, 5, 5))
+    run("hybrid_segments", qs, ts, band_width(128), timed=True)
     # one set per tier: each register tier (rows a lane 1..16), the band in
     # shared memory, the band in global scratch with rows read from global
     # memory, and rows too long to stage at a narrow band
@@ -1001,38 +1126,14 @@ def main() -> int:
           and PHASING_ARGV == pexp["argv"],
           "the phasing input differs from the one smoke_expected.json was "
           "made from")
-    # the segments each K1 call verifies, and the walls (host clock, the
-    # results come back to the host) of those calls and of the haplotig
-    # alignment around them
-    from platanus_b_tpu_torch.models.longread import LongReadAligner
-    from platanus_b_tpu_torch.ops import align
-    segments, walls = [], {"haplotig alignment": 0.0, "edit_distance calls": 0.0}
-    banded, align_batch = align.banded_edit_distance, LongReadAligner.align_batch
-
-    def timed(key, fn):
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                walls[key] += time.perf_counter() - t0
-        return wrapper
-
-    def recording(queries, targets, *a, **kw):
-        segments.append((len(queries), max(len(x) + len(y) - 1
-                                           for x, y in zip(queries, targets))))
-        return banded(queries, targets, *a, **kw)
-
+    # the segments each K1 call verifies, and the walls of the aligner's
+    # parts (its align_batch is the haplotig alignment)
+    segments, walls = [], {}
     torch.cuda.empty_cache()
     reset_launches()
     steps = {}
-    align.banded_edit_distance = timed("edit_distance calls", recording)
-    LongReadAligner.align_batch = timed("haplotig alignment", align_batch)
-    try:
+    with aligner_split(walls, segments):
         run_phasing(ph_work, lambda argv: run_cli(argv, steps))
-    finally:
-        align.banded_edit_distance = banded
-        LongReadAligner.align_batch = align_batch
     launches["phasing"] = dict(kernels.LAUNCHES)
     hashes = phasing_hashes(ph_work)
     rec = steps["solve_dbg"]
@@ -1048,6 +1149,47 @@ def main() -> int:
     for name in ("edit_distance", "kmer_extract"):
         check(launches["phasing"][name] > 0,
               f"{name} never launched in the phasing flow")
+
+    # ---- phase 8: the hybrid iterate (long reads, two rounds, a combine)
+    PHASE["name"] = "hybrid"
+    hexp = exp.get("hybrid")
+    check(hexp is not None, "smoke_expected.json has no hybrid record")
+    hy_work = os.path.join(work, "hybrid")
+    shutil.rmtree(hy_work, ignore_errors=True)
+    t0 = time.perf_counter()
+    inputs = make_hybrid_dataset(hy_work, HYBRID_DATASET)
+    data_s = time.perf_counter() - t0
+    check(HYBRID_DATASET == hexp["dataset"]
+          and inputs == hexp["inputs_sha256"] and HYBRID_ARGV == hexp["argv"],
+          "the hybrid input differs from the one smoke_expected.json was "
+          "made from")
+    segments, walls = [], {}
+    torch.cuda.empty_cache()
+    reset_launches()
+    steps = {}
+    with aligner_split(walls, segments):
+        run_from(hy_work, HYBRID_ARGV, lambda argv: run_cli(argv, steps))
+    launches["hybrid"] = dict(kernels.LAUNCHES)
+    hashes = iterate_hashes(hy_work, "hy")
+    rec = steps["iterate"]
+    stage_walls = {k[len("iterate: "):]: v for k, v in rec["stage_s"].items()
+                   if k.startswith("iterate: ")}
+    ok = hashes == hexp["sha256"]
+    emit({"phase": "hybrid", "ok": ok, "wall_s": rec["wall_s"],
+          "dataset_s": data_s, "stage_walls_s": stage_walls,
+          "aligner_walls_s": walls, "peak_device_gib": rec["peak_device_gib"],
+          "launches": launches["hybrid"],
+          "edit_distance_calls": [n for n, _ in segments],
+          "segments": sum(n for n, _ in segments),
+          "longest_pair_diagonals": max((m for _, m in segments), default=0),
+          "num_output_seqs": fasta_count(os.path.join(
+              hy_work, "hy_iterativeAssembly.fa")),
+          "sha256": hashes, "expected_sha256": hexp["sha256"],
+          "jax_cpu_wall_s": hexp.get("jax_cpu_wall_s")})
+    check(ok, "hybrid outputs differ from smoke_expected.json")
+    for name in ("edit_distance", "kmer_extract", "ungap_align"):
+        check(launches["hybrid"][name] > 0,
+              f"{name} never launched in the hybrid iterate")
 
     PHASE["name"] = "summary"
     for name, entry in kern.items():

@@ -7,6 +7,8 @@ function names follow the JAX package so each counterpart is easy to find:
 - ``ops.kmer``      <- ``ops/kmer.py`` (+ the ``kmer_extract`` CUDA kernel)
 - ``ops.count``     <- ``ops/count.py`` (sort + run-length counting)
 - ``ops.search``    <- ``ops/search.py``
+- ``ops.gapcost``   the long-read chaining DP's gap cost as XLA's CPU
+  backend computes it (``models/longread.py:_chain_kernel``)
 - ``ops.align``     <- ``ops/align.py`` + ``ops/pallas_align.py`` (+ the
   ``edit_distance`` CUDA kernel, the port of the Pallas ``_bed_kernel``)
 - ``models.*``      <- ``models/*`` (+ the ``ungap_align`` CUDA kernel in

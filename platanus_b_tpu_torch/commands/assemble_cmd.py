@@ -38,6 +38,9 @@ def add_parser(sub: argparse._SubParsersAction) -> None:
     p.add_argument("-kmer_occ_only", action="store_true",
                    help="only output k-mer occurrence table")
     p.add_argument("-repeat", action="store_true", help="repeat mode")
+    p.add_argument("-divide_straight", action="store_true",
+                   help="divide unitigs at read-uncovered positions "
+                        "(disabled in the reference binary)")
     p.set_defaults(func=run)
 
 
@@ -55,7 +58,7 @@ def run(args) -> int:
         manual_cutoff=args.n, log_p_split=args.a, bubble_threshold=args.u,
         branch_threshold=args.d, fixed_average_coverage=args.e,
         repeat_mode=args.repeat, kmer_occ_only=args.kmer_occ_only,
-        memory_gb=float(args.m))
+        memory_gb=float(args.m), divide_straight=args.divide_straight)
 
     with LOG.stage("loading reads"):
         batches = list(load_read_batches(args.f))

@@ -11,13 +11,8 @@ remove_redundant_seq.pl, iterate.cpp:490-549) run in-process through
 models.combinatorial on top of the asm10 long-read aligner.
 
 Port copy of platanus_b_tpu/commands/iterate_cmd.py through the port's CLI.
-Adaptations: each stage runs inside LOG.stage("iterate: <stage>"), so the
-stage clock holds its wall; -i >= 2 and long-read libraries (-p/-ont) stop
-with a typed ArgError (exit 5) before any file is written, and the
-combine rounds above wait for models/combinatorial.py. The reference's
-branches for later rounds (merge, -extend) and for forwarding -p/-ont are
-kept as they are behind those stops, for the slice that lifts them. -gc is
-forwarded as the reference forwards it.
+One adaptation: each stage runs inside LOG.stage("iterate: <stage>"), so
+the stage clock holds its wall.
 """
 
 from __future__ import annotations
@@ -85,12 +80,6 @@ def run(args) -> int:
     libargv = _lib_argv(getattr(args, "libspecs", []))
     if not libargv:
         raise ArgError("iterate: no read library given (-IP/-ip/-OP/-op)")
-    if args.i >= 2:
-        raise ArgError("iterate: -i >= 2 is not ported yet (its combine "
-                       "rounds need solve_dbg -combine)")
-    if args.p or args.ont:
-        raise ArgError("iterate: -p/-ont (long-read libraries) are not "
-                       "ported yet")
 
     inter = f"{o}_iterateIntermediateResults"
     os.makedirs(inter, exist_ok=True)
@@ -178,8 +167,37 @@ def run(args) -> int:
     _call(["polish", "-c", f"{cur_dir}/{o}_final_divided.fa",
            "-o", f"{cur_dir}/{o}"] + libargv, "final polish")
 
-    # the combine rounds (iterate.cpp:490-549) run only for -i >= 2
-    final_file = f"{cur_dir}/{o}_polished_final_divided.fa"
+    final_in = f"{cur_dir}/{o}_polished_final_divided.fa"
+
+    # combine rounds (iterate.cpp:490-549): combine the final assembly with
+    # each later round's gap-closed result, then combinatorial gap close and
+    # redundancy removal; the last round's result is the final output
+    from ..models import combinatorial as comb
+    final_file = final_in
+    for times in range(max(args.i // 2, 1), args.i):
+        gc_file = (f"{inter}/{o}{times}/"
+                   f"{o}_gapClosed_polished_consensusScaffold.fa")
+        if not os.path.exists(gc_file):
+            continue
+        prefix = f"{cur_dir}/{o}{times}"
+        _call(["solve_dbg", "-combine", "-c", final_in, "-gc", gc_file,
+               "-o", prefix], f"combine (round {times})")
+        base = [(n, fa.seq_to_codes(s))
+                for n, s in fa.iter_fasta(f"{prefix}_combined.fa")]
+        compl = [(n, fa.seq_to_codes(s)) for n, s in fa.iter_fasta(gc_file)]
+        if base and compl:
+            closed, _n = comb.combinatorial_gap_close(
+                [c for _n2, c in base], [n for n, _c in base],
+                [c for _n2, c in compl], [n for n, _c in compl])
+            base = list(zip([n for n, _c in base], closed))
+        fa.write_fasta(f"{prefix}_closed.fa",
+                       [(n, fa.codes_to_seq(c)) for n, c in base])
+        red = comb.remove_redundant([c for _n2, c in base],
+                                    [n for n, _c in base])
+        fa.write_fasta(f"{prefix}_closed.fa.rmred",
+                       [(n, fa.codes_to_seq(c))
+                        for (n, c), r in zip(base, red) if not r])
+        final_file = f"{prefix}_closed.fa.rmred"
 
     out_recs = [(n, s) for n, s in fa.iter_fasta(final_file)]
     # re-stamp lengths in headers (close_gap.pl renames lenNNN)

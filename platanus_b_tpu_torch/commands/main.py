@@ -2,8 +2,8 @@
 
 Usage: python -m platanus_b_tpu_torch <command> [options]
 
-The ported commands are in COMMANDS; any other subcommand of
-platanus_b_tpu stops with a typed ArgError (exit code 5). Paired-library
+All 12 subcommands of platanus_b_tpu are in COMMANDS; an unknown one gets
+argparse's usage message and exit code 2, as in the JAX package. Paired-library
 flags (-IP1 r1 r2, -ip2 ..., -OP/-op) are taken out of argv before
 argparse runs, as the JAX package does (main.py:79-86).
 """
@@ -14,11 +14,12 @@ import argparse
 import sys
 
 from .. import REFERENCE_VERSION, __version__
-from ..utils.errors import ArgError, PlatanusError
+from ..utils.errors import PlatanusError
 from ..utils.log import LOG
 
 COMMANDS = ("assemble", "scaffold", "solve_dbg", "gap_close", "polish",
-            "merge", "kmer_divide", "iterate", "divide", "consensus", "phase")
+            "merge", "kmer_divide", "iterate", "divide", "consensus", "phase",
+            "combine")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,9 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
                      f"port of platanus_b_tpu (Platanus_B v{REFERENCE_VERSION} "
                      f"capabilities); commands: {', '.join(COMMANDS)}"))
     sub = parser.add_subparsers(dest="command", required=True)
-    from . import (assemble_cmd, gap_close_cmd, iterate_cmd, kmer_divide_cmd,
-                   merge_cmd, orchestrators, polish_cmd, scaffold_cmd,
-                   solve_dbg_cmd)
+    from . import (assemble_cmd, combine_cmd, gap_close_cmd, iterate_cmd,
+                   kmer_divide_cmd, merge_cmd, orchestrators, polish_cmd,
+                   scaffold_cmd, solve_dbg_cmd)
     assemble_cmd.add_parser(sub)
     scaffold_cmd.add_parser(sub)
     solve_dbg_cmd.add_parser(sub)
@@ -40,6 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     kmer_divide_cmd.add_parser(sub)
     iterate_cmd.add_parser(sub)
     orchestrators.add_parsers(sub)
+    combine_cmd.add_parser(sub)
     return parser
 
 
@@ -49,9 +51,6 @@ def main(argv: list[str] | None = None) -> int:
              f"(Platanus_B {REFERENCE_VERSION} capabilities)")
     LOG.info("Command: " + " ".join(argv))
     try:
-        if argv and not argv[0].startswith("-") and argv[0] not in COMMANDS:
-            raise ArgError(f"unknown command for platanus_b_tpu_torch: "
-                           f"{argv[0]} (available: {', '.join(COMMANDS)})")
         from .libparse import extract_library_args
         argv, libspecs = extract_library_args(argv)
         args = build_parser().parse_args(argv)

@@ -5,8 +5,7 @@ gap_close (divide.cpp:94-127, consensus.cpp:122-131, phase.cpp:112-139);
 here they are in-process calls.
 
 Port copy of platanus_b_tpu/commands/orchestrators.py, calling the port's
-CLI. One adaptation: `phase -p/-ont` (long-read libraries) stops with a
-typed ArgError (exit 5) before any work.
+CLI. No adaptation.
 """
 
 from __future__ import annotations
@@ -112,9 +111,6 @@ def run_phase(args) -> int:
 
     if not args.c:
         raise ArgError("phase: no contig file given (-c)")
-    if args.p or args.ont:
-        raise ArgError("phase: -p/-ont (long-read libraries) are not "
-                       "ported yet")
     libargv = _lib_argv(getattr(args, "libspecs", []))
     red = ["-reduce_redundancy"] if args.reduce_redundancy else []
     inter = f"{args.o}_intermediateResults"

@@ -12,12 +12,9 @@ consensus path used by `iterate` (solveDBG.cpp:209-228 + extendConsensus
 
 Port copy of platanus_b_tpu/commands/solve_dbg_cmd.py: the reference's
 text over the port's mapper and its copies of the scaffold-family modules.
-Adaptations: the contig index lies on the device of select_device(), and
-long-read libraries (-p/-ont) and -combine stop with a typed ArgError
-(exit 5) before any work; -combine's dispatch waits for
-commands/combine_impl.py. The reference's long-read branch of
-_setup_graph is kept as it is behind the stop, for the slice that lifts
-it. -gc is accepted and, as in the reference, read only by -combine.
+One adaptation: the contig index lies on the device of select_device().
+Long reads (-p/-ont) are aligned by the port's models/longread.py, and
+-combine dispatches to the port's commands/combine_impl.py.
 """
 
 from __future__ import annotations
@@ -778,12 +775,6 @@ def run_phasing(args) -> int:
 def run(args) -> int:
     if not args.c:
         raise ArgError("solve_dbg: no contig file given (-c)")
-    if args.p or args.ont:
-        raise ArgError("solve_dbg: -p/-ont (long-read libraries) are not "
-                       "ported yet")
-    if args.combine:
-        raise ArgError("solve_dbg: -combine is not ported yet (it needs "
-                       "models/combinatorial.py)")
     if args.unphase:
         results, _g = run_unphase(
             args.c, getattr(args, "libspecs", []), args.o,
@@ -802,4 +793,7 @@ def run(args) -> int:
     if args.divide_only:
         from .divide_impl import run_divide_only
         return run_divide_only(args)
+    if args.combine:
+        from .combine_impl import run_combine
+        return run_combine(args)
     return run_phasing(args)

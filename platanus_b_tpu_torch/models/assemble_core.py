@@ -414,6 +414,34 @@ def filter_reads_by_edge_kmers(reads: StagedReads, edge_table,
     return reads.select(read_hit)
 
 
+def divide_straight_node(dbg: DBG, reads: StagedReads) -> int:
+    """divideStraightNode by read mapping (graph.h:1150-1372) at node level,
+    as the JAX package does it (assemble_core.py:757-799): a read that maps
+    every valid window onto alive nodes covers those nodes; alive
+    non-junction nodes that no such read covers are deleted. Returns the
+    number of deleted nodes."""
+    covered = torch.zeros(dbg.n, dtype=torch.bool, device=dbg.device)
+    n_mapped = 0
+    if reads.num_reads and dbg.n:
+        keys, _n_valid = reads.kmers(dbg.k)
+        R, P, L = keys.shape
+        valid = ~is_sentinel(keys)
+        idx = lookup(dbg.keys, keys.reshape(-1, L), dbg.n).reshape(R, P)
+        hit = (idx >= 0) & dbg.alive[idx.clamp(0, dbg.n - 1)] & valid
+        # a fully-mapping read: every valid window hits (mapRead breaks the
+        # whole read on any miss, graph.h:1275-1305)
+        read_ok = (hit | ~valid).all(dim=1) & valid.any(dim=1)
+        covered[idx[read_ok[:, None] & hit]] = True
+        n_mapped = int(read_ok.sum())
+    kill = dbg.alive & ~covered & ~dbg.topo[4]
+    n_kill = int(kill.sum())
+    if n_kill:
+        dbg.delete_nodes(kill)
+    LOG.counter("TOTAL_MAPPED_READS", n_mapped)
+    LOG.counter("NUM_DELETE_NODE(reads are unmapped)", n_kill)
+    return n_kill
+
+
 def count_considering_previous(contig_table: KmerTable,
                                reads: StagedReads) -> tuple[KmerTable, np.ndarray]:
     """makeKmerReadDistributionConsideringPreviousGraph (counter.h:663-750):
@@ -490,6 +518,8 @@ class AssembleOptions:
     kmer_occ_only: bool = False
     memory_gb: float = 0.0
     coverage_cutoff_factor: float = 0.0
+    divide_straight: bool = False  # divideStraightNode pass (disabled in
+    # the reference binary, assemble.cpp:396,528)
 
     @property
     def min_log_p_join(self) -> float:
@@ -627,6 +657,11 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
         # -repeat overrides the bubble identity threshold (assemble.cpp:126-128)
         bub_thr = 0.95 if opts.repeat_mode else opts.bubble_threshold
         clean.crush_bubble_iterative(dbg, average_coverage, bub_thr, bubbles)
+
+    # optional read-mapping node division (commented out in the reference
+    # at assemble.cpp:396,528; opt-in via -divide_straight)
+    if opts.divide_straight:
+        divide_straight_node(dbg, read_fp)
 
     # final rebuild from the cleaned graph's own k-mers: saveContig(k, 1.0)
     with LOG.stage("final rebuild"):

@@ -18,7 +18,8 @@ Port copy of platanus_b_tpu/models/longread.py: the reference's text, its
 relative imports resolving to the port's modules (ops/minimizer, hetero,
 log). Adaptations, all where the reference runs device code:
 - ``_chain_kernel`` is the same DP as torch ops: the B groups of a bucket
-  advance together, one step per anchor, on the aligner's device;
+  advance together, one step per anchor, on the aligner's device; its gap
+  cost comes from a table of XLA's float32 values (ops/gapcost.py);
 - the aligner sketches and chains on the device of select_device();
 - ``verify_alignments_batched`` branches on that device where the
   reference branches on its backend: the CPU measures segments with
@@ -35,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..device import select_device
+from ..ops.gapcost import chain_gap_cost
 from ..ops.minimizer import sketch
 from ..utils.log import LOG
 
@@ -44,11 +46,14 @@ def _chain_kernel(cap: int, H: int, max_gap: int, kk: int):
     """Batched colinear-chaining DP (minimap2 chain.c semantics): B anchor
     groups (padded to `cap`) advance in parallel, one step per anchor;
     each step scans an H-deep lookback window — the device replacement for
-    the per-anchor Python loop. q, t: (B, cap) int32; n: (B,) int32."""
+    the per-anchor Python loop. q, t: (B, cap) int32; n: (B,) int32.
+    The gap cost is gathered from ops/gapcost.py's float32 table, which
+    holds the reference's XLA values bit for bit."""
     import torch
 
     def run(q, t, n):
         B, dev = q.shape[0], q.device
+        gap_cost = torch.from_numpy(chain_gap_cost(max_gap).copy()).to(dev)
         offs = torch.arange(1, H + 1, device=dev)
         rows = torch.arange(B, device=dev)
         f = torch.full((B, cap), float(kk), dtype=torch.float32, device=dev)
@@ -63,9 +68,7 @@ def _chain_kernel(cap: int, H: int, max_gap: int, kk: int):
                 & (dt <= max_gap)
             gain = torch.minimum(torch.minimum(dq, dt),
                                  torch.full_like(dq, kk)).to(torch.float32)
-            gap = (dq - dt).abs().to(torch.float32)
-            cost = gap * 0.1 + torch.where(gap > 0,
-                                           torch.log2(gap + 1.0) * 0.5, 0.0)
+            cost = gap_cost[(dq - dt).abs().clamp(max=max_gap).long()]
             cand = torch.where(ok, f[:, jc] + gain - cost, -torch.inf)
             b = torch.argmax(cand, dim=1)
             cb = cand[rows, b]

@@ -14,6 +14,13 @@ numpy only, so the JAX package and the port can be fed identical files.
   (tests/test_phase.py:50-57) at bacterial scale: a homozygous contig and
   two haplotypes of one heterozygous region, the second carrying
   substitutions at `het_rate`, headed with coverages 40, 21 and 19.
+- ``simulate_long_reads``: long reads from both strands of a genome, with
+  lengths drawn from an exponential distribution and substitutions,
+  insertions and deletions at given rates (an ONT-like read set);
+- ``simulate_fragmented_contigs``: a genome cut into contigs of a length
+  range with the stretches between them dropped and every other contig
+  reverse-complemented, headed as `assemble` heads its contigs: the shape
+  of a short-read assembly broken at repeats;
 - ``ungap_edge_inputs``: inputs of the ungap_align kernel that reach its
   edge cases (reads shorter than a seed, N codes, slots at contig ends in
   both orientations, duplicate slots across seeds, tied maxima, and with
@@ -89,6 +96,72 @@ def simulate_phase_contigs(path: str, homo_bp: int, hap_bp: int,
                                        start=1):
             f.write(f">seq{i}_len{len(seq)}_cov{cov}_read100_maxK50\n"
                     f"{_BASES[seq].tobytes().decode()}\n")
+
+
+def _codes(genome: str) -> np.ndarray:
+    lut = np.full(256, 4, np.uint8)
+    lut[_BASES] = np.arange(4, dtype=np.uint8)
+    return lut[np.frombuffer(genome.encode(), np.uint8)]
+
+
+def simulate_long_reads(path: str, genome: str, coverage: float,
+                        mean_len: int, sub: float, ins: float, dele: float,
+                        seed: int, min_len: int = 1000) -> int:
+    """Write long reads of `genome` (ACGT text) at `path` (FASTA, ont{i}):
+    genome * coverage / mean_len reads, each of length max(min_len,
+    Exponential(mean_len)) (at most the genome) from a uniform start, from
+    either strand. Each base of the read's span is independently deleted
+    (rate `dele`), substituted by another base (rate `sub`) or preceded by
+    an inserted random base (rate `ins`). Returns the number of reads."""
+    rng = np.random.default_rng(seed)
+    garr = _codes(genome)
+    n = max(1, int(len(garr) * coverage / mean_len))
+    with open(path, "w") as f:
+        for i in range(n):
+            ln = min(max(min_len, int(rng.exponential(mean_len))), len(garr))
+            st = int(rng.integers(0, len(garr) - ln + 1))
+            r = garr[st: st + ln].copy()
+            if rng.random() < 0.5:
+                r = 3 - r[::-1]
+            u = rng.random(ln)
+            is_sub = u < sub
+            is_ins = (u >= sub) & (u < sub + ins)
+            is_del = (u >= sub + ins) & (u < sub + ins + dele)
+            r[is_sub] = (r[is_sub] + rng.integers(1, 4, size=int(is_sub.sum()))) % 4
+            # each kept base emits itself, after a random base where inserted
+            reps = np.where(is_del, 0, np.where(is_ins, 2, 1))
+            out = np.repeat(r, reps)
+            first = np.cumsum(reps) - reps
+            out[first[is_ins]] = rng.integers(0, 4, size=int(is_ins.sum()))
+            f.write(f">ont{i}\n{_BASES[out].tobytes().decode()}\n")
+    return n
+
+
+def simulate_fragmented_contigs(path: str, genome: str, min_len: int,
+                                max_len: int, min_gap: int, max_gap: int,
+                                seed: int, read_len: int = 125,
+                                max_k: int = 63) -> int:
+    """Write `genome` (ACGT text) cut into contigs at `path`: lengths
+    uniform in [min_len, max_len], a stretch of uniform [min_gap, max_gap]
+    bases dropped after each, every other contig reverse-complemented,
+    headed seq{i}_len{L}_cov40_read{read_len}_maxK{max_k}, 80 bases a line.
+    Returns the number of contigs."""
+    rng = np.random.default_rng(seed)
+    garr = _codes(genome)
+    pos, i = 0, 0
+    with open(path, "w") as f:
+        while pos < len(garr):
+            ln = int(rng.integers(min_len, max_len + 1))
+            c = garr[pos: pos + ln]
+            if i % 2:
+                c = 3 - c[::-1]
+            text = _BASES[c].tobytes().decode()
+            i += 1
+            f.write(f">seq{i}_len{len(c)}_cov40_read{read_len}_maxK{max_k}\n")
+            f.write("".join(text[j: j + 80] + "\n"
+                            for j in range(0, len(text), 80)))
+            pos += ln + int(rng.integers(min_gap, max_gap + 1))
+    return i
 
 
 def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,

@@ -39,6 +39,8 @@ CONFIGS = {
     "repeat": (["-k", "25", "-repeat"], ["contig.fa", "25merFrq.tsv"]),
     "kmer_occ_only": (["-k", "25", "-kmer_occ_only"],
                       ["kmer_occ.bin", "25merFrq.tsv"]),
+    "divide_straight": (["-k", "25", "-divide_straight"],
+                        ["contig.fa", "25merFrq.tsv"]),
 }
 
 

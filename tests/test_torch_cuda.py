@@ -210,6 +210,10 @@ def _edit_distance_case(shape, rng):
         qs, ts = qs + q2, ts + t2
     elif shape == "unstaged":             # rows too long to stage, band 128
         qs, ts = _random_pairs(rng, 2, 17000, 17400, (30, 10, 10))
+    elif shape == "map_ont_segment":      # map-ont read segments with indels
+        qs, ts = _random_pairs(rng, 64, 900, 1100, (11, 5, 5))
+        q2, t2 = _random_pairs(rng, 8, 1, 400, (4, 2, 2))
+        qs, ts = qs + q2, ts + t2
     else:                                 # edges at band 128
         x = rng.integers(0, 4, size=400, dtype=np.uint8)
         shifted = np.concatenate([rng.integers(0, 4, size=300,
@@ -233,6 +237,7 @@ def _edit_distance_case(shape, rng):
     pytest.param(2048, "shared_band", id="shared_band_2048"),
     pytest.param(20096, "global_band", id="global_band_20096"),
     pytest.param(128, "unstaged", id="unstaged_128"),
+    pytest.param(128, "map_ont_segment", id="map_ont_segment_128"),
     pytest.param(128, "edges", id="edges_128"),
     pytest.param(384, "edges", id="edges_384")])
 def test_edit_distance_kernel_matches_plain(dev, band, shape):
@@ -252,6 +257,54 @@ def test_edit_distance_kernel_matches_plain(dev, band, shape):
         true = talign.edit_distance_np(qs[0], ts[0])
         assert (got[0] > true) if band == 128 else (got[0] == true)
         assert got.tolist()[-3:] == [5, 3, 0]
+
+
+@pytest.mark.parametrize("max_gap,kk", [(5000, 15), (10000, 19)],
+                         ids=["map-ont", "asm10"])
+def test_chain_kernel_on_card_matches_cpu(dev, max_gap, kk):
+    """The chaining DP (models/longread.py:_chain_kernel) on the card
+    against the same call on the CPU, f and prev bit for bit, on anchor
+    groups whose candidate links have gap sizes g from 1 to max_gap; and
+    the gap-cost table gathered on the card equals the CPU's."""
+    from platanus_b_tpu_torch.models.longread import _chain_kernel
+    from platanus_b_tpu_torch.ops.gapcost import chain_gap_cost
+    table = chain_gap_cost(max_gap)
+    g = torch.arange(max_gap + 1, device=dev)
+    on_card = torch.from_numpy(table.copy()).to(dev)[g].cpu().numpy()
+    assert np.array_equal(on_card.view(np.uint32), table.view(np.uint32))
+    rng = np.random.default_rng(max_gap)
+    B, cap = 96, 128
+    qs = np.zeros((B, cap), np.int32)
+    ts = np.zeros((B, cap), np.int32)
+    ns = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(cap // 2, cap + 1))
+        dq = rng.integers(1, max_gap // 40 + 2, size=n)
+        dt = dq + rng.integers(-6, 7, size=n)
+        jump = rng.random(n) < 0.1
+        dt[jump] += rng.integers(-max_gap, max_gap + 1, size=int(jump.sum()))
+        q = np.cumsum(dq)
+        t = np.cumsum(np.maximum(dt, 1))
+        order = np.lexsort((q, t))
+        qs[b, :n], ts[b, :n], ns[b] = q[order], t[order], n
+    # the gaps of the candidate links the DP scores (0 < dq, dt <= max_gap
+    # within the lookback of 25)
+    gaps = set()
+    for b in range(B):
+        q, t = qs[b, :ns[b]].astype(np.int64), ts[b, :ns[b]].astype(np.int64)
+        for h in range(1, 26):
+            dq, dt = q[h:] - q[:-h], t[h:] - t[:-h]
+            ok = (dq > 0) & (dt > 0) & (dq <= max_gap) & (dt <= max_gap)
+            gaps.update(np.abs(dq - dt)[ok].tolist())
+    assert min(gaps - {0}) == 1 and max(gaps) > 0.9 * max_gap
+    kern = _chain_kernel(cap, 25, max_gap, kk)
+    args = [torch.from_numpy(x) for x in (qs, ts, ns)]
+    cf, cp = kern(*args)
+    gf, gp = kern(*[x.to(dev) for x in args])
+    assert np.array_equal(gf.cpu().numpy().view(np.uint32),
+                          cf.numpy().view(np.uint32))
+    assert torch.equal(gp.cpu(), cp)
+    assert (cp >= 0).sum() > B
 
 
 def test_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):

@@ -137,3 +137,38 @@ def test_crush_bubble_iterative(name):
     assert all((x.seq == y.seq).all() for x, y in zip(tb, jb))
     assert (t.counts.cpu().numpy() == np.asarray(j.counts)[: j.n]).all()
     _assert_same_graph(j, t)
+
+
+@pytest.mark.parametrize("case", ["uncovered_middle", "errors_and_n"])
+def test_divide_straight_node(case):
+    """tests/test_dbg.py:166-199's inputs (a 600 bp unitig at k = 21, reads
+    over [0, 250) and [350, 600)); then the same with substitutions and an
+    N in some reads, which then map only partly or not at all. The same
+    kill count and the same graph on both sides."""
+    from platanus_b_tpu.models.assemble_core import \
+        divide_straight_node as jdivide
+    from platanus_b_tpu_torch.io.reads import pack_reads as tpack
+    from platanus_b_tpu_torch.models.assemble_core import (
+        divide_straight_node as tdivide, stage_reads)
+
+    rng = np.random.default_rng(42)
+    k = 21
+    genome = simdata.random_genome(rng, 600)
+    keys, counts, n = jcnt.count_batch(pack_reads([genome]).codes, k)
+    keys_h, counts_h = jcnt.compact_host(keys, counts, n)
+    j = JDBG(k, keys_h, counts_h)
+    t = interop.dbg_from_arrays(k, keys_h, counts_h)
+    assert j.label_unitigs().num_unitigs == 1
+    reads = [genome[st: st + 60] for lo, hi in ((0, 250), (350, 600))
+             for st in range(lo, hi - 60, 20)]
+    if case == "errors_and_n":
+        reads[3] = simdata.mutate(rng, reads[3], 0.05)
+        reads[9] = reads[9][:30] + "N" + reads[9][31:]
+        reads.append(simdata.random_genome(rng, 60))
+    n_kill = jdivide(j, [pack_reads(reads)])
+    assert tdivide(t, stage_reads([tpack(reads)], "cpu")) == n_kill > 0
+    _assert_same_graph(j, t)
+    # the uncovered middle cuts the unitig in two; a read left out by its
+    # errors uncovers more
+    assert t.label_unitigs().num_unitigs == (2 if case == "uncovered_middle"
+                                             else 3)

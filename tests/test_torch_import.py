@@ -72,14 +72,14 @@ def test_cli_help_without_jax():
 
 
 def test_round_commands_without_jax():
-    """Every ported command's --help, and `solve_dbg -combine` (which needs
-    the unported models/combinatorial.py) stopping with a typed ArgError,
-    all in one interpreter that never loads jax."""
+    """All 12 commands' --help, and `solve_dbg -combine` and `combine` on a
+    missing input ending with a typed error, all in one interpreter that
+    never loads jax."""
     code = ("import contextlib, io, sys\n"
             "from platanus_b_tpu_torch.commands.main import COMMANDS, main\n"
             "assert set(COMMANDS) == {'assemble', 'scaffold', 'solve_dbg',"
             " 'gap_close', 'polish', 'merge', 'kmer_divide', 'iterate',"
-            " 'divide', 'consensus', 'phase'}\n"
+            " 'divide', 'consensus', 'phase', 'combine'}\n"
             "for cmd in COMMANDS:\n"
             "    out = io.StringIO()\n"
             "    with contextlib.redirect_stdout(out):\n"
@@ -89,24 +89,27 @@ def test_round_commands_without_jax():
             "            assert e.code in (0, None), (cmd, e.code)\n"
             "    assert '-o' in out.getvalue(), cmd\n"
             "rc = main(['solve_dbg', '-combine', '-c', 'x.fa', '-gc', 'y.fa'])\n"
-            "assert rc == 5, rc\n"
+            "assert rc == 2, rc\n"
+            "rc = main(['combine', '-c', 'x.fa', '-gc', 'y.fa', '-o', 'z'])\n"
+            "assert rc == 2, rc\n"
             "assert 'jax' not in sys.modules\n"
             "print('ok')\n")
     res = _run(code, {"PLATANUS_B_TPU_TORCH_DEVICE": "cpu"})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
-    assert "ERROR(5)" in res.stderr and "-combine" in res.stderr
+    assert res.stderr.count("ERROR(2)") == 2 and "x.fa" in res.stderr
 
 
 def test_build_parser_and_scaffold_family_without_jax():
-    """The modules of the scaffolding slice, the lazy imports of its
-    functions, and main.build_parser() load no jax."""
+    """The modules of the scaffolding and hybrid slices, the lazy imports
+    of their functions, and main.build_parser() load no jax."""
     code = ("import sys\n"
-            "from platanus_b_tpu_torch.commands import (divide_impl,"
-            " iterate_cmd, orchestrators, scaffold_cmd, solve_dbg_cmd)\n"
-            "from platanus_b_tpu_torch.models import (bubble, divide,"
-            " gap_close, hetero, longread, phasing, scaffold)\n"
-            "from platanus_b_tpu_torch.ops import align, minimizer\n"
+            "from platanus_b_tpu_torch.commands import (combine_cmd,"
+            " combine_impl, divide_impl, iterate_cmd, orchestrators,"
+            " scaffold_cmd, solve_dbg_cmd)\n"
+            "from platanus_b_tpu_torch.models import (bubble, combinatorial,"
+            " divide, gap_close, hetero, longread, phasing, scaffold)\n"
+            "from platanus_b_tpu_torch.ops import align, gapcost, minimizer\n"
             "from platanus_b_tpu_torch.commands.main import build_parser\n"
             "build_parser()\n"
             "assert not [m for m in sys.modules if m == 'platanus_b_tpu'\n"
@@ -127,11 +130,14 @@ def test_no_port_module_names_jax():
 
 
 def test_unknown_command_is_typed_error():
+    """An unknown command gets argparse's usage message and exit 2, as in
+    the JAX package (its main.py:85)."""
     res = _run("import sys\n"
                "from platanus_b_tpu_torch.commands.main import main\n"
-               "sys.exit(main(['combine', '-o', 'x']))\n")
-    assert res.returncode == 5
-    assert "ERROR(5)" in res.stderr
+               "sys.exit(main(['foo']))\n")
+    assert res.returncode == 2
+    assert "usage: platanus_b_tpu_torch" in res.stderr
+    assert "invalid choice: 'foo'" in res.stderr
 
 
 def test_cuda_required_unless_cpu_requested():

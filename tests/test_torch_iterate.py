@@ -1,25 +1,20 @@
 """`iterate -i 1` and `phase` in the port against the JAX package, every
-written file byte for byte (run_both, tests/test_torch_solve_dbg.py), and
-the typed stops of the paths that are not ported yet: exit 5 before any
-file is written.
+written file byte for byte (run_both, tests/test_torch_solve_dbg.py). The
+long-read and later-round paths are in tests/test_torch_longread_cli.py
+and tests/test_torch_combine.py.
 """
-
-import os
-import shutil
 
 import numpy as np
 import pytest
 
 import simdata
-from platanus_b_tpu_torch.commands.main import main as port_main
 from test_torch_solve_dbg import run_both
 
 
 @pytest.fixture(scope="module")
 def frag(tmp_path_factory):
     """tests/test_iterate.py:12-23's data: an 8 kbp genome in three
-    contigs with 200 bp gaps, 40x innie pairs (insert 500, 0.2% errors);
-    plus a few long reads for the -p stops."""
+    contigs with 200 bp gaps, 40x innie pairs (insert 500, 0.2% errors)."""
     d = tmp_path_factory.mktemp("frag")
     rng = np.random.default_rng(42)
     genome = simdata.random_genome(rng, 8000)
@@ -31,8 +26,6 @@ def frag(tmp_path_factory):
                                     sd=50, coverage=40.0, error_rate=0.002)
     simdata.write_fasta(d / "r1.fa", fwd)
     simdata.write_fasta(d / "r2.fa", rev)
-    simdata.write_fasta(d / "lr.fa", simdata.long_reads(
-        rng, genome, mean_len=3000, coverage=3.0, error_rate=0.02))
     return d
 
 
@@ -83,28 +76,3 @@ def test_phase_byte_identical(diploid, tmp_path, monkeypatch):
                  "ph_nonBubbleHomoCandidate.fa"):
         assert name in wrote, name
     assert len(wrote["ph_allPhaseBlock.fa"]) > 20000
-
-
-LIB = ["-IP1", "r1.fa", "r2.fa"]
-
-
-@pytest.mark.parametrize("argv", [
-    ["iterate", "-o", "it", "-c", "start_contig.fa", "-i", "2"] + LIB,
-    ["iterate", "-o", "it", "-c", "start_contig.fa", "-i", "1", "-p",
-     "lr.fa"] + LIB,
-    ["solve_dbg", "-combine", "-c", "start_contig.fa", "-gc",
-     "start_contig.fa", "-o", "out"],
-    ["solve_dbg", "-unphase", "-c", "start_contig.fa", "-p", "lr.fa", "-o",
-     "out"] + LIB,
-    ["phase", "-o", "ph", "-c", "start_contig.fa", "-ont", "lr.fa"] + LIB,
-], ids=["iterate-i2", "iterate-p", "solve_dbg-combine", "solve_dbg-p",
-        "phase-ont"])
-def test_unported_paths_exit_5_without_files(frag, tmp_path, monkeypatch,
-                                             argv):
-    inputs = ["start_contig.fa", "r1.fa", "r2.fa", "lr.fa"]
-    for name in inputs:
-        shutil.copyfile(frag / name, tmp_path / name)
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cpu")
-    assert port_main(argv) == 5
-    assert sorted(os.listdir(tmp_path)) == sorted(inputs)

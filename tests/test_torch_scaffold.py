@@ -63,15 +63,7 @@ PINS = {
         ("eds = banded_edit_distance(qs, ts, band=SEG_BAND).astype(np.int64)",
          "eds = banded_edit_distance(qs, ts, band=SEG_BAND,\n"
          "                           device=device).astype(np.int64)")]),
-    "commands/solve_dbg_cmd.py": (set(), [
-        _DEVICE_INDEX,
-        ("", "if args.p or args.ont:\n"
-             '    raise ArgError("solve_dbg: -p/-ont (long-read libraries) '
-             'are not "\n                   "ported yet")\n'
-             "if args.combine:\n"
-             '    raise ArgError("solve_dbg: -combine is not ported yet '
-             '(it needs "\n                   "models/combinatorial.py)")'),
-        ("if args.combine:\n    return run_combine(args)", "")]),
+    "commands/solve_dbg_cmd.py": (set(), [_DEVICE_INDEX]),
     "commands/scaffold_cmd.py": (set(), [_DEVICE_INDEX]),
     "commands/divide_impl.py": (set(), [
         ("def divide_scaffolds(scaffolds, libs, seed_lengths=(32,), "
@@ -82,24 +74,13 @@ PINS = {
          "index = ContigIndex(scaffolds, key_length=32, device=device)"),
         ("", 'device = select_device()\nLOG.info(f"device: {device}")'),
         ("min_len=max_k)", "min_len=max_k, device=device)")]),
-    "commands/orchestrators.py": (set(), [
-        ("", "if args.p or args.ont:\n"
-             '    raise ArgError("phase: -p/-ont (long-read libraries) are '
-             'not "\n                   "ported yet")')]),
+    "commands/orchestrators.py": (set(), []),
     "commands/iterate_cmd.py": (set(), [
         ("rc = cli_main(argv)",
-         'with LOG.stage(f"iterate: {stage}"):\n    rc = cli_main(argv)'),
-        ("", "if args.i >= 2:\n"
-             '    raise ArgError("iterate: -i >= 2 is not ported yet (its '
-             'combine "\n                   "rounds need solve_dbg '
-             '-combine)")\n'
-             "if args.p or args.ont:\n"
-             '    raise ArgError("iterate: -p/-ont (long-read libraries) are '
-             'not "\n                   "ported yet")'),
-        (('final_in = f"{cur_dir}/{o}_polished_final_divided.fa"',
-          'final_file = f"{prefix}_closed.fa.rmred"'),
-         "# the combine rounds (iterate.cpp:490-549) run only for -i >= 2\n"
-         'final_file = f"{cur_dir}/{o}_polished_final_divided.fa"')]),
+         'with LOG.stage(f"iterate: {stage}"):\n    rc = cli_main(argv)')]),
+    "commands/combine_impl.py": (set(), []),
+    "commands/combine_cmd.py": (set(), []),
+    "models/combinatorial.py": (set(), []),
     # the host-only modules the port keeps its own copies of
     "io/fasta.py": (set(), [
         ("Fast path: the native C++ decoder (platanus_b_tpu.native) over the",
