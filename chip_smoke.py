@@ -60,9 +60,26 @@ Phases, one JSON line each; any failure exits non-zero:
    ungap_align must have run. It prints the wall, each stage's wall, the
    walls of the aligner's parts, the segments of each edit_distance call
    and their longest pair's diagonals.
+9. the multi-process layer (platanus_b_tpu_torch/parallel/): (a) `python
+   -m torch.distributed.run --standalone --nproc-per-node 2 -m
+   platanus_b_tpu_torch assemble -k 32 -f a.fa b.fa -o mp`, two ranks
+   sharing the card, on phase 3's reads cut into two files (host_shard
+   gives each rank one; with --genome-bp 4600000 each half passes
+   host_read_plan's 64 MiB and both are split by byte range): the
+   contig set must hash to the parity record, the files must equal
+   phase 3's bytes, and rank 1 must write nothing; (b) the same launch
+   of phase 5's `assemble -kmer_occ_only -n 1 -k 62`, whose two files
+   must hash to smoke_expected.json; (c) sharded_count, sharded_adjacency
+   and sharded_map over NCCL, one rank for each card
+   (torch.multiprocessing.spawn), each against the single-process port
+   on the same card. It prints the walls of (a) and (b) from launch to
+   exit beside phase 3's and phase 5's single-process walls, each rank's
+   peak device memory and kernel launches.
 
 Each of phases 3-8 sets the launch counts to 0 just before it and reads
-them just after. Then a {"kernels": [...]} line, the nvidia-smi line, and
+them just after; phase 9's ranks are processes of their own, which count
+from 0 and report their counts (the CLI's DEVICE REPORT log line, (c)'s
+result file). Then a {"kernels": [...]} line, the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Without a CUDA card it exits
 1 and prints no result. Working files go under
 platanus_b_tpu_torch/build/smoke/.
@@ -75,6 +92,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -444,6 +462,176 @@ def aligner_split(walls: dict, segments: list):
     finally:
         for name, (obj, attr) in parts.items():
             setattr(obj, attr, saved[name])
+
+
+# ---------------------------------------------------------------------------
+# phase 9 helpers: the multi-process layer (platanus_b_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+MP_RANKS = 2
+MP_ASSEMBLE_ARGV = ["assemble", "-k", "32", "-f", "a.fa", "b.fa", "-o", "mp"]
+MP_OCC_ARGV = ["assemble", "-kmer_occ_only", "-n", "1", "-k", "62", "-f",
+               "r1.fa", "r2.fa", "-o", "mpocc"]
+# (c)'s mapping: __graft_entry__.py:79-91's shape, a 50 kbp genome as two
+# 25 kbp contigs, key 21, 2048 reads of 100 bp for each rank
+MP_MAP = {"genome_bp": 50_000, "contig_bp": 25_000, "key": 21,
+          "read_len": 100, "reads_per_rank": 2048, "seed": 1}
+DEVICE_REPORT = re.compile(r"^\[\w*?(\d+)\]:#### DEVICE REPORT #### (\{.*\})$")
+
+
+def split_records(src: str, dst_a: str, dst_b: str) -> None:
+    """The FASTA at `src` as two files, cut at the record boundary nearest
+    its middle byte."""
+    with open(src, "rb") as f:
+        data = f.read()
+    cut = data.find(b"\n>", len(data) // 2) + 1 or len(data)
+    with open(dst_a, "wb") as f:
+        f.write(data[:cut])
+    with open(dst_b, "wb") as f:
+        f.write(data[cut:])
+
+
+def torchrun(argv: list[str], work: str, nproc: int) -> dict:
+    """`python -m torch.distributed.run --standalone --nproc-per-node N -m
+    platanus_b_tpu_torch <argv>` from `work`, each rank's output tagged
+    [default<r>]: by --tee. Returns the wall from launch to exit, each
+    rank's DEVICE REPORT (peak device bytes, kernel launches, stage times,
+    seconds since its logger's start) and the output, which is also kept
+    in `work`. A failed rank fails the run."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    # one host: gloo binds the loopback device instead of resolving the
+    # host name
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "--tee", "3", "-m",
+           "platanus_b_tpu_torch", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"{' '.join(argv)}: torchrun outlived 600 s")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, f"torchrun_{argv[-1]}.log"), "w") as f:
+        f.write(out)
+    check(proc.returncode == 0, f"torchrun {' '.join(argv)} exited "
+          f"{proc.returncode}:\n{out[-3000:]}")
+    reports = {}
+    for line in out.splitlines():
+        m = DEVICE_REPORT.match(line)
+        if m:
+            reports[int(m.group(1))] = json.loads(m.group(2))
+    check(sorted(reports) == list(range(nproc)),
+          f"device reports of ranks {sorted(reports)} of {nproc}")
+    return {"wall_s": wall, "reports": [reports[r] for r in range(nproc)],
+            "log": out}
+
+
+def device_layer_rank(rank: int, world: int, port: int, reads_fa: str,
+                      out_dir: str) -> None:
+    """Phase 9 (c), one rank of torch.multiprocessing.spawn: the device
+    layer over NCCL (sharded_count at k 32 on this rank's rows of the
+    reads, sharded_adjacency on its shard, sharded_map at MP_MAP's shape),
+    then each result against the single-process port on the same card:
+    count_reads_device, the DBG's adjacency and map_reads. Writes
+    out_dir/rank<r>.json; a mismatch raises."""
+    import torch
+    import torch.distributed as dist
+
+    from platanus_b_tpu_torch import kernels
+    from platanus_b_tpu_torch.models.assemble_core import (
+        StagedReads, count_reads_device, stage_read_files)
+    from platanus_b_tpu_torch.models.dbg import DBG
+    from platanus_b_tpu_torch.models.mapper import ContigIndex, map_reads
+    from platanus_b_tpu_torch.ops.keys import lexsort
+    from platanus_b_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        group = dist.group.WORLD
+        reads = stage_read_files([reads_fa], dev)
+        a, b = (rank * reads.num_reads // world,
+                (rank + 1) * reads.num_reads // world)
+        local = StagedReads(reads.codes[a:b], reads.lengths[a:b],
+                            reads.has_n, reads.max_len)
+        m = MP_MAP
+        rng = np.random.default_rng(m["seed"])
+        genome = rng.integers(0, 4, size=m["genome_bp"], dtype=np.uint8)
+        n_map = world * m["reads_per_rank"]
+        starts = rng.integers(0, m["genome_bp"] - m["read_len"], size=n_map)
+        codes = genome[starts[:, None] + np.arange(m["read_len"])[None, :]]
+        index = ContigIndex([genome[: m["contig_bp"]],
+                             genome[m["contig_bp"]:]],
+                            key_length=m["key"], device=dev)
+        rows = slice(rank * m["reads_per_rank"],
+                     (rank + 1) * m["reads_per_rank"])
+        map_codes = torch.from_numpy(codes[rows]).to(dev)
+        map_lens = torch.full((m["reads_per_rank"],), m["read_len"],
+                              dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        for key in kernels.LAUNCHES:
+            kernels.LAUNCHES[key] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        keys, counts, hist = sharding.sharded_count(local, 32, group)
+        out, junc, n_junc, n_edge = sharding.sharded_adjacency(
+            keys, counts, 32, group)
+        ids, offs, mhist = sharding.sharded_map(index, map_codes, map_lens,
+                                                m["key"], group)
+        torch.cuda.synchronize()
+        rec = {"rank": rank, "world": world,
+               "wall_s": time.perf_counter() - t0,
+               "launches": dict(kernels.LAUNCHES),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+               "shard_keys": int(keys.shape[0])}
+
+        # the single-process port on the same card, on every read
+        all_k, all_c, all_o, all_j = (
+            torch.cat(sharding.all_gather_rows(t, group))
+            for t in (keys, counts, out, junc.to(torch.uint8)))
+        perm = lexsort(all_k)
+        want_k, want_c, n, want_h = count_reads_device(reads, 32)
+        if not (torch.equal(all_k[perm], want_k)
+                and torch.equal(all_c[perm], want_c)
+                and np.array_equal(hist.cpu().numpy(), want_h)):
+            raise AssertionError("sharded_count != count_reads_device")
+        _si, _so, want_o, outdeg, want_j = DBG(32, want_k, want_c).topo
+        if not (torch.equal(all_o[perm].to(torch.int64),
+                            want_o.T.to(torch.int64))
+                and torch.equal(all_j[perm].bool(), want_j)
+                and n_junc == int(want_j.sum())
+                and n_edge == int(outdeg.sum())):
+            raise AssertionError("sharded_adjacency != the DBG's adjacency")
+        want_ids, want_offs = map_reads(index, codes, np.full(
+            n_map, m["read_len"], np.int32), (m["key"],))
+        want_hist = np.bincount(np.abs(want_ids[want_ids != 0]) - 1,
+                                minlength=2)
+        if not (np.array_equal(ids.cpu().numpy(), want_ids[rows])
+                and np.array_equal(offs.cpu().numpy(), want_offs[rows])
+                and np.array_equal(mhist.cpu().numpy(), want_hist)):
+            raise AssertionError("sharded_map != map_reads")
+        rec.update(table_keys=n, n_junction=n_junc, n_edge=n_edge,
+                   mapped=int((want_ids != 0).sum()), n_map_reads=n_map)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 # ---------------------------------------------------------------------------
@@ -994,6 +1182,7 @@ def main() -> int:
     emit(rec)
     check(rec["ok"], "contig set differs from the parity record")
     check(launches["main_path"]["kmer_extract"] > 0, "kmer_extract never launched")
+    main_wall, parity_sha = rec["wall_s"], rec["expected_sha256"]
 
     # ---- phase 4: the bubble configuration
     PHASE["name"] = "bubble"
@@ -1043,6 +1232,7 @@ def main() -> int:
     prof_work = os.path.join(work, "round_profiled")
     shutil.rmtree(prof_work, ignore_errors=True)
     walls = {name: rec["wall_s"] for name, rec in steps.items()}
+    occ_wall = walls["assemble"]
     steps = {}
     run_round(prof_work, round_data,
               lambda argv: run_cli(argv, steps, profile=True))
@@ -1190,6 +1380,91 @@ def main() -> int:
     for name in ("edit_distance", "kmer_extract", "ungap_align"):
         check(launches["hybrid"][name] > 0,
               f"{name} never launched in the hybrid iterate")
+
+    # ---- phase 9: the multi-process layer, two ranks sharing the card
+    PHASE["name"] = "multi_process"
+    t_phase = time.perf_counter()
+    mp_work = os.path.join(work, "multi_process")
+    occ_work = os.path.join(mp_work, "round")
+    dl_work = os.path.join(mp_work, "device_layer")
+    shutil.rmtree(mp_work, ignore_errors=True)
+    for d in (occ_work, dl_work):
+        os.makedirs(d)
+    split_records(reads_fa, os.path.join(mp_work, "a.fa"),
+                  os.path.join(mp_work, "b.fa"))
+    for name in ("r1.fa", "r2.fa"):
+        shutil.copy(os.path.join(round_data, name), os.path.join(occ_work, name))
+    torch.cuda.empty_cache()
+    # (a) assemble on phase 3's reads as two files, one for each rank
+    run_a = torchrun(MP_ASSEMBLE_ARGV, mp_work, MP_RANKS)
+    mp_sha = sorted_set_sha256(read_fasta(os.path.join(mp_work,
+                                                       "mp_contig.fa")))
+    single = sorted(f[len(f"out_{gbp}_"):] for f in os.listdir(work)
+                    if f.startswith(f"out_{gbp}_"))
+    multi = sorted(f[len("mp_"):] for f in os.listdir(mp_work)
+                   if f.startswith("mp_"))
+    same_files = multi == single and all(
+        file_sha256(os.path.join(mp_work, f"mp_{f}"))
+        == file_sha256(os.path.join(work, f"out_{gbp}_{f}")) for f in single)
+    rank1_quiet = ("[default1]:assemble completed (non-zero host, no output)!"
+                   in run_a["log"])
+    # (b) the round's -kmer_occ_only count on its reads
+    run_b = torchrun(MP_OCC_ARGV, occ_work, MP_RANKS)
+    occ_hashes = {f"occ_{name}": file_sha256(os.path.join(occ_work,
+                                                          f"mpocc_{name}"))
+                  for name in ("62merFrq.tsv", "kmer_occ.bin")}
+    occ_expected = {name: rexp["sha256"][name] for name in occ_hashes}
+    # (c) the device layer over NCCL, one rank for each card
+    import torch.multiprocessing as tmp
+    world = torch.cuda.device_count()
+    tmp.spawn(device_layer_rank, nprocs=world, join=True,
+                                args=(world, free_port(), reads_fa, dl_work))
+    ranks_c = []
+    for r in range(world):
+        with open(os.path.join(dl_work, f"rank{r}.json")) as f:
+            ranks_c.append(json.load(f))
+    runs = [rep["kernel_launches"] for run in (run_a, run_b)
+            for rep in run["reports"]] + [rc["launches"] for rc in ranks_c]
+    launches["multi_process"] = {name: sum(r[name] for r in runs)
+                                 for name in kernels.LAUNCHES}
+
+    def per_rank(run, key):
+        return [rep[key] for rep in run["reports"]]
+
+    def run_record(run, argv, single_wall):
+        """The walls (launch to exit; each rank from its logger's start to
+        its report, and its top-level stages), peaks and launches."""
+        return {"argv": argv, "wall_launch_to_exit_s": run["wall_s"],
+                "single_process_wall_s": single_wall,
+                "rank_since_start_s": per_rank(run, "since_start_s"),
+                "rank_stage_s": [{k: v for k, v in rep["stage_s"].items()
+                                  if not k.startswith(" ")}
+                                 for rep in run["reports"]],
+                "peak_device_bytes_by_rank": per_rank(
+                    run, "peak_allocated_bytes"),
+                "launches_by_rank": per_rank(run, "kernel_launches")}
+
+    ok = (mp_sha == parity_sha and same_files and rank1_quiet
+          and occ_hashes == occ_expected)
+    emit({"phase": "multi_process", "ok": ok, "ranks": MP_RANKS,
+          "wall_s": time.perf_counter() - t_phase,
+          "assemble": {**run_record(run_a, MP_ASSEMBLE_ARGV, main_wall),
+                       "sorted_set_sha256": mp_sha,
+                       "expected_sha256": parity_sha,
+                       "files": multi, "files_equal_phase3": same_files,
+                       "rank1_wrote_nothing": rank1_quiet},
+          "kmer_occ": {**run_record(run_b, MP_OCC_ARGV, occ_wall),
+                       "sha256": occ_hashes, "expected_sha256": occ_expected},
+          "device_layer": {"world": world, "map_shape": MP_MAP,
+                           "ranks": ranks_c},
+          "launches": launches["multi_process"]})
+    check(ok, "the multi-process runs differ from the single-process ones")
+    for name, run in (("assemble", run_a), ("-kmer_occ_only", run_b)):
+        check(all(rep["kernel_launches"]["kmer_extract"] > 0
+                  for rep in run["reports"]),
+              f"kmer_extract never launched on a rank of {name}")
+    check(all(rc["launches"]["kmer_extract"] > 0 for rc in ranks_c),
+          "kmer_extract never launched in sharded_count")
 
     PHASE["name"] = "summary"
     for name, entry in kern.items():

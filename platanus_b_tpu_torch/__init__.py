@@ -14,6 +14,11 @@ function names follow the JAX package so each counterpart is easy to find:
 - ``models.*``      <- ``models/*`` (+ the ``ungap_align`` CUDA kernel in
   ``models.mapper``)
 - ``commands.*``    <- ``commands/*``
+- ``parallel.multihost`` <- ``parallel/multihost.py`` (torchrun bring-up,
+  ingest plan, host gathers and the key-range sharded merge; CPU tensors
+  over gloo)
+- ``parallel.sharding``  <- ``parallel/sharding.py`` (key-space-sharded
+  count, adjacency and mapping over a process group; NCCL on the card)
 
 The package is self-contained: it imports nothing of the JAX package.
 The host-only modules it needs (``io``, ``utils.errors``,

@@ -7,14 +7,20 @@ Same flags, defaults and output files as platanus_b_tpu's assemble
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
 
+import torch
+
+from .. import kernels
 from ..device import select_device
 from ..io import fasta as fa
 from ..io.reads import load_read_batches
 from ..models.assemble_core import (AssembleOptions, assemble,
                                     assemble_repeat)
 from ..ops import count as cnt
+from ..parallel import multihost as mh
 from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
@@ -60,8 +66,18 @@ def run(args) -> int:
         repeat_mode=args.repeat, kmer_occ_only=args.kmer_occ_only,
         memory_gb=float(args.m), divide_straight=args.divide_straight)
 
+    files = args.f
+    if mh.process_count() > 1:
+        # ingest sharding: this rank reads only its slice — compressed
+        # files whole, round-robin; plain files by byte range at record
+        # boundaries when large, else whole; the counting stage merges the
+        # ranks' tables (parallel/multihost.py)
+        splittable = [p for p in args.f if not fa.is_compressed(p)]
+        whole = [p for p in args.f if fa.is_compressed(p)]
+        files = (mh.host_read_plan(splittable)
+                 + [(p, 0, -1) for p in mh.host_shard(whole)])
     with LOG.stage("loading reads"):
-        batches = list(load_read_batches(args.f))
+        batches = list(load_read_batches(files))
     # -repeat -kmer_occ_only is plain single-pass counting
     # (assemble.cpp:189-192)
     if args.repeat and not args.kmer_occ_only:
@@ -69,6 +85,36 @@ def run(args) -> int:
     else:
         result = assemble(batches, opts, device)
 
+    if mh.process_count() > 1 and mh.process_index() != 0:
+        # every rank holds the same result (global merges); only rank 0
+        # writes, or the ranks would race on the same -o paths
+        LOG.info("assemble completed (non-zero host, no output)!")
+    else:
+        write_outputs(args, result)
+        LOG.info("assemble completed!")
+    LOG.report_memory()
+    LOG.report_device_memory()
+    report_rank()
+    return 0
+
+
+def report_rank() -> None:
+    """The run's per-rank report, one JSON line on the log after the
+    memory report: peak device bytes on each card, this process's kernel
+    launches, its stage times and the seconds since its logger started (at
+    import, after torch's). Under torchrun each rank prints its own, which
+    is how an operator (or chip_smoke.py phase 9) compares the ranks."""
+    if not torch.cuda.is_initialized():
+        return
+    peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d)
+             for d in range(torch.cuda.device_count())}
+    LOG.info("#### DEVICE REPORT #### " + json.dumps(
+        {"peak_allocated_bytes": peaks, "kernel_launches": kernels.LAUNCHES,
+         "stage_s": LOG.timings,
+         "since_start_s": time.perf_counter() - LOG.started}))
+
+
+def write_outputs(args, result) -> None:
     # k-mer frequency distribution TSV (assemble.cpp:337-340)
     if result.hist0 is not None:
         cnt.write_occurrence_tsv(f"{args.o}_{result.k0}merFrq.tsv", result.hist0)
@@ -77,8 +123,7 @@ def run(args) -> int:
         keys, counts = result.kmer_table.host_words()
         cnt.write_occurrence_table_binary(f"{args.o}_kmer_occ.bin", keys,
                                           counts, result.kmer_table.k)
-        LOG.info("assemble completed!")
-        return 0
+        return
 
     out = f"{args.o}_contig.fa"
     fa.write_contigs(out, result.contigs, result.contig_covs, 1.0,
@@ -91,7 +136,3 @@ def run(args) -> int:
                          [b.seq for b in result.bubbles],
                          [b.coverage for b in result.bubbles], 1.0,
                          result.average_length, result.max_k, prefix="seq")
-    LOG.info("assemble completed!")
-    LOG.report_memory()
-    LOG.report_device_memory()
-    return 0

@@ -47,6 +47,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    # multi-process bring-up (torchrun's MASTER_ADDR & friends) runs before
+    # any device use; logs whether multi-process mode is active
+    from ..parallel import multihost as mh
+    if mh.initialize():
+        LOG.info(f"multi-host runtime: process {mh.process_index()} "
+                 f"of {mh.process_count()}")
+        try:
+            return _run(argv)
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return _run(argv)
+
+
+def _run(argv: list[str]) -> int:
     LOG.info(f"platanus_b_tpu_torch version {__version__} "
              f"(Platanus_B {REFERENCE_VERSION} capabilities)")
     LOG.info("Command: " + " ".join(argv))

@@ -18,10 +18,11 @@ import torch
 
 from ..io.reads import ReadBatch, load_read_batches
 from ..ops import count as cnt
-from ..ops.keys import (is_sentinel, keys_to_words, lanes_to_words, num_lanes,
-                        num_words)
+from ..ops.keys import (is_sentinel, keys_from_words, keys_to_words,
+                        lanes_to_words, num_lanes, num_words)
 from ..ops.kmer import extract_kmers_packed, kmer_to_codes, pack_codes
 from ..ops.search import lookup
+from ..parallel import multihost as mh
 from ..utils.log import LOG
 from . import clean
 from .clean import _first_target
@@ -135,6 +136,44 @@ def count_reads_device(reads: StagedReads, k: int):
     del keys
     hist = cnt.histogram_host(cnt.occurrence_histogram(ucounts))
     return ukeys, ucounts, n, hist
+
+
+def _host_table(keys: torch.Tensor, counts: torch.Tensor, k: int):
+    """A table as the ranks exchange it: ((n, W) uint32 words, (n,) uint32
+    counts saturated at MAX_OCCURRENCE)."""
+    return (keys_to_words(keys, k),
+            counts.clamp(max=cnt.MAX_OCCURRENCE).cpu().numpy()
+            .astype(np.uint32))
+
+
+def _gather_table(k: int, keys: np.ndarray, counts: np.ndarray,
+                  device) -> KmerTable:
+    """Every rank's key-range slice (host words), concatenated in rank
+    order, which is the sorted global table, on `device`."""
+    return KmerTable(k, keys_from_words(mh.all_hosts_concat(keys), device),
+                     torch.from_numpy(mh.all_hosts_concat(counts)
+                                      .astype(np.int64)).to(device))
+
+
+def _shard_histogram(counts: np.ndarray) -> np.ndarray:
+    """Global histogram from key-range shards: each unique key lives in
+    exactly one shard, so it is the sum of the shards' histograms."""
+    local = cnt.occurrence_histogram(torch.from_numpy(counts.astype(np.int64)))
+    return mh.psum_histogram(cnt.histogram_host(local)).astype(np.int32)
+
+
+def count_reads(reads: StagedReads, k: int) -> tuple[KmerTable, np.ndarray]:
+    """The global table of every rank's reads (assemble_core.py:270): each
+    rank counts its own reads, the key-range sharded merge reduces each
+    range on its owner, the histogram is the sum of the shards', and the
+    shards concatenate in rank order into the sorted table, replicated.
+    Single-process it is count_reads_device. A rank with no reads still
+    enters every collective."""
+    keys, counts, _n, hist = count_reads_device(reads, k)
+    if mh.process_count() == 1:
+        return KmerTable(k, keys, counts), hist
+    sk, sc = mh.global_count_merge_sharded(*_host_table(keys, counts, k), k=k)
+    return _gather_table(k, sk, sc, reads.device), _shard_histogram(sc)
 
 
 # ---------------------------------------------------------------------------
@@ -446,13 +485,15 @@ def count_considering_previous(contig_table: KmerTable,
                                reads: StagedReads) -> tuple[KmerTable, np.ndarray]:
     """makeKmerReadDistributionConsideringPreviousGraph (counter.h:663-750):
     contig-derived k-mers keep their coverage-based occurrence; read k-mers
-    NOT in the contig table are counted normally; the result is the union."""
+    NOT in the contig table are counted normally; the result is the union.
+    With several ranks the read count is the global table (count_reads)."""
     k = contig_table.k
     with LOG.stage("    recount: count reads"):
-        rk, rc, rn, _h = count_reads_device(reads, k)
+        read_table, _h = count_reads(reads, k)
+        rk, rc = read_table.keys, read_table.counts
     with LOG.stage("    recount: merge"):
         ck, cc = contig_table.keys, contig_table.counts
-        if rn and len(contig_table):
+        if len(read_table) and len(contig_table):
             new = lookup(ck, rk) < 0
             rk, rc = rk[new], rc[new]
         uk, uc, _un = cnt.merge_counts(ck, cc, rk, rc)
@@ -553,12 +594,20 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
              device) -> AssembleResult:
     total_bases = sum(b.total_bases for b in batches)
     total_reads = sum(b.num_reads for b in batches)
+    if mh.process_count() > 1:
+        # each rank holds only its ingest slice; the average read length
+        # fixes the k schedule, so it comes from the global totals or the
+        # ranks diverge on their collectives
+        tb, tr = mh.psum_histogram(np.asarray([total_bases, total_reads],
+                                              np.int64))
+        total_bases, total_reads = int(tb), int(tr)
     average_length = total_bases / max(total_reads, 1)
 
     # ---- initial k counting (initialKmerAssemble, assemble.cpp:303-386)
     k0 = opts.k
     # -m budget: the same arithmetic as the JAX package, so both take the
-    # same (partitioned or single-pass) branch
+    # same (partitioned or single-pass) branch; with several ranks each
+    # decides from its own windows
     W0 = num_words(k0)
     windows = sum(b.num_reads * max(b.codes.shape[1] - k0 + 1, 0)
                   for b in batches)
@@ -576,6 +625,16 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
             hist = cnt.histogram_host(cnt.occurrence_histogram(counts0))
         else:
             keys0, counts0, n0, hist = count_reads_device(reads, k0)
+    shard = None
+    if mh.process_count() > 1:
+        # key-range sharded merge: this rank keeps ONLY its slice of the
+        # raw table, which is dominated by error singletons and never
+        # replicates; the global histogram is the sum of the slices'. Only
+        # the cutoff-filtered slices are gathered below, for the graph.
+        shard = mh.global_count_merge_sharded(
+            *_host_table(keys0, counts0, k0), k=k0)
+        del keys0, counts0
+        hist = _shard_histogram(shard[1])
     hist0 = hist
 
     cutoff0 = cnt.coverage_cutoff(hist, manual=opts.manual_cutoff,
@@ -597,12 +656,24 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
         opts.min_coverage, k0, cutoff0, opts.step, opts.max_k_ratio)
 
     if opts.kmer_occ_only:
-        table = KmerTable(k0, keys0, counts0.clamp(max=cnt.MAX_OCCURRENCE))
+        if shard is not None:
+            table = _gather_table(k0, *shard, device)
+        else:
+            table = KmerTable(k0, keys0,
+                              counts0.clamp(max=cnt.MAX_OCCURRENCE))
         return AssembleResult([], [], [], [], [], average_length, k0,
                               kmer_table=table, hist0=hist0, k0=k0)
 
-    dbg = build_dbg_from_table(KmerTable(k0, keys0, counts0), cutoffs[0])
-    del keys0, counts0
+    if shard is not None:
+        # cutoff-filter each slice, THEN gather: the replicated graph build
+        # sees only the filtered table
+        keep = shard[1] >= cutoffs[0]
+        table = _gather_table(k0, shard[0][keep], shard[1][keep], device)
+        del shard
+        dbg = DBG(k0, table.keys, table.counts)
+    else:
+        dbg = build_dbg_from_table(KmerTable(k0, keys0, counts0), cutoffs[0])
+        del keys0, counts0
     clean.cut_branch_iterative(dbg, opts.branch_threshold)
     if not opts.fixed_average_coverage:
         average_coverage = clean.average_coverage_excluding_bubble(dbg)

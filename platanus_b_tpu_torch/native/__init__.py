@@ -7,7 +7,9 @@ the pure-Python implementations when no compiler is available.
 Port copy of platanus_b_tpu/native/__init__.py: the library is built
 from this package's verbatim copy of io_native.cpp into the package's
 build/ directory, which git ignores, so a run writes nothing beside the
-sources.
+sources. Each process compiles into a temporary file of its own and
+renames it into place, so processes that start together on a fresh
+checkout (the ranks of one torchrun) never load a half-written library.
 """
 
 from __future__ import annotations
@@ -38,11 +40,12 @@ def _load():
         if (not os.path.exists(_LIB)
                 or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
             os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{_LIB}.{os.getpid()}.tmp"
             subprocess.run(
                 ["g++", "-O3", "-shared", "-fPIC",
-                 "-o", _LIB + ".tmp", _SRC],
+                 "-o", tmp, _SRC],
                 check=True, capture_output=True)
-            os.replace(_LIB + ".tmp", _LIB)
+            os.replace(tmp, _LIB)
         lib = ctypes.CDLL(_LIB)
         for fn in ("decode_fasta", "decode_fastq"):
             getattr(lib, fn).restype = ctypes.c_long

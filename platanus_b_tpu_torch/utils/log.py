@@ -21,6 +21,7 @@ class StageLogger:
         self.out = out if out is not None else sys.stderr
         self.timings: dict[str, float] = {}
         self.counters: dict[str, int | float] = {}
+        self.started = time.perf_counter()
 
     def info(self, msg: str) -> None:
         print(msg, file=self.out, flush=True)

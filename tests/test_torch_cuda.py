@@ -434,3 +434,61 @@ def test_phasing_flow_on_card_writes_the_cpu_bytes(dev, tmp_path,
                  "bubbleRelation.tsv", "phasedScaffoldComponent.bed"):
         assert ((tmp_path / f"gpu_{name}").read_bytes()
                 == (tmp_path / f"cpu_{name}").read_bytes()), name
+
+
+@pytest.fixture
+def nccl_world1(dev):
+    """A one-rank NCCL process group on the card, destroyed afterwards."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _staged_reads(dev):
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models.assemble_core import stage_reads
+    rng = np.random.default_rng(3)
+    genome = simdata.random_genome(rng, 20000)
+    reads = simdata.shotgun_reads(rng, genome, 100, 20.0, error_rate=0.003)
+    return stage_reads([pack_reads(reads)], dev)
+
+
+@pytest.mark.parametrize("k", [21, 32, 48])
+def test_sharded_count_over_nccl_world1(dev, nccl_world1, k):
+    """sharded_count at world 1 over NCCL: kmer_extract, the all_to_all
+    with exact splits, the count and the histogram's all_reduce give
+    count_reads_device's table."""
+    from platanus_b_tpu_torch.models.assemble_core import count_reads_device
+    from platanus_b_tpu_torch.parallel.sharding import sharded_count
+    reads = _staged_reads(dev)
+    before = kernels.LAUNCHES["kmer_extract"]
+    keys, counts, hist = sharded_count(reads, k, nccl_world1)
+    assert kernels.LAUNCHES["kmer_extract"] > before
+    want_k, want_c, n, want_h = count_reads_device(reads, k)
+    assert keys.is_cuda and n > 0
+    assert torch.equal(keys, want_k) and torch.equal(counts, want_c)
+    assert np.array_equal(hist.cpu().numpy(), want_h)
+
+
+def test_sharded_adjacency_over_nccl_world1(dev, nccl_world1):
+    """The halo exchange at world 1 over NCCL gives the DBG's adjacency."""
+    from platanus_b_tpu_torch.models.dbg import DBG
+    from platanus_b_tpu_torch.parallel.sharding import (sharded_adjacency,
+                                                        sharded_count)
+    keys, counts, _h = sharded_count(_staged_reads(dev), 21, nccl_world1)
+    out, junc, n_junc, n_edge = sharded_adjacency(keys, counts, 21,
+                                                  nccl_world1)
+    _si, _so, want_out, outdeg, want_junc = DBG(21, keys, counts).topo
+    assert torch.equal(out.to(torch.int64), want_out.T.to(torch.int64))
+    assert torch.equal(junc, want_junc)
+    assert n_junc == int(want_junc.sum()) > 0
+    assert n_edge == int(outdeg.sum())

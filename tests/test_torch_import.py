@@ -45,8 +45,10 @@ def _all_modules():
 
 def test_import_every_module_without_jax():
     mods = _all_modules()
-    assert "platanus_b_tpu_torch.kernels" in mods
-    code = ("import importlib, sys\n"
+    assert {"platanus_b_tpu_torch.kernels",
+            "platanus_b_tpu_torch.parallel.multihost",
+            "platanus_b_tpu_torch.parallel.sharding"} <= set(mods)
+    code =("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, sorted(\n"

@@ -100,7 +100,12 @@ PINS = {
          "_LIB = os.path.join(BUILD_DIR,\n"
          '                    f"_io_native_{sys.implementation.cache_tag}'
          '.so")'),
-        ("", "os.makedirs(BUILD_DIR, exist_ok=True)")]),
+        # a temporary file per process: ranks building at once on a fresh
+        # checkout (test_torch_multihost.py::test_native_build_is_process_safe)
+        ("", "os.makedirs(BUILD_DIR, exist_ok=True)\n"
+             'tmp = f"{_LIB}.{os.getpid()}.tmp"'),
+        ('"-o", _LIB + ".tmp", _SRC],', '"-o", tmp, _SRC],'),
+        ('os.replace(_LIB + ".tmp", _LIB)', "os.replace(tmp, _LIB)")]),
 }
 
 _IMPORT = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s)")
