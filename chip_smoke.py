@@ -13,8 +13,14 @@ Phases, one JSON line each; any failure exits non-zero:
    once take at 3.35 TB/s, and the operations take at 67 T/s), what sets
    it, and the kernel's share of it (for ungap_align with the count of ok
    slots its bound is taken over; for edit_distance with the diagonals of
-   its longest pair and the time per diagonal, since that serial chain and
-   not the bound sets its time), and edit_distance on one set per tier;
+   its longest pair and the time per diagonal, for chain_dp with the steps
+   of its longest group and the time per step, since those serial chains
+   and not the bound set their times), edit_distance on one set per tier,
+   and chain_dp (f and prev bit for bit) on the buckets of phases 7 and 8:
+   map-ont at caps 2048, 4096 and 8192, asm10 at caps 4096 and 8192, and
+   one group pair at cap 2**17, whose plain version runs on the card when
+   the smaller buckets' time a step puts it under 30 s, else on a CPU copy
+   of the same inputs;
 3. the main path: `assemble -k 32` through the port's CLI on the parity
    dataset (parity/run_parity.py:121 simulate(genome_bp, 125, 40, 0.003,
    123)); the sorted canonical contig set must hash to the value recorded
@@ -43,8 +49,9 @@ Phases, one JSON line each; any failure exits non-zero:
    apart (simulate.simulate_phase_contigs); its haplotig pairing aligns
    each haplotype with the asm10 long-read aligner, whose segments go
    through edit_distance at band 128 in one launch. The six phasing files
-   must hash to smoke_expected.json, edit_distance and kmer_extract must
-   have run; it prints the segments and their longest pair's diagonals;
+   must hash to smoke_expected.json, edit_distance, kmer_extract and
+   chain_dp must have run; it prints the segments and their longest
+   pair's diagonals, the chaining buckets and the largest of them;
 8. the hybrid pipeline of README.md: `iterate -i 2 -o hy -c contigs.fa
    -IP1 r1.fa r2.fa -ont ont.fa` on the genome and read pairs of
    parity/PARITY_iterate_1000000.json (1 Mbp, 125 bp pairs, 40x), the
@@ -56,10 +63,11 @@ Phases, one JSON line each; any failure exits non-zero:
    band 128), round 2 merges and extends, and round 1's result is
    combined once (asm10). Every file iterate writes must hash to
    smoke_expected.json (made by the JAX package with its non-CPU
-   segment verification forced), and edit_distance, kmer_extract and
-   ungap_align must have run. It prints the wall, each stage's wall, the
-   walls of the aligner's parts, the segments of each edit_distance call
-   and their longest pair's diagonals.
+   segment verification forced), and edit_distance, kmer_extract,
+   ungap_align and chain_dp must have run. It prints the wall, each
+   stage's wall, the walls of the aligner's parts, the segments of each
+   edit_distance call and their longest pair's diagonals, and the
+   chaining buckets (cap, groups) with the largest of them.
 9. the multi-process layer (platanus_b_tpu_torch/parallel/): (a) `python
    -m torch.distributed.run --standalone --nproc-per-node 2 -m
    platanus_b_tpu_torch assemble -k 32 -f a.fa b.fa -o mp`, two ranks
@@ -185,7 +193,8 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = next((k for k in ("edit_distance", "kmer_extract",
-                                     "ungap_align") if k in ln), "other")
+                                     "ungap_align", "chain_dp") if k in ln),
+                        "other")
         elif name and "Used" in ln and "registers" in ln:
             words = ln.replace(",", " ").split()
             regs = int(words[words.index("registers") - 1])
@@ -417,13 +426,17 @@ def make_hybrid_dataset(work: str, ds: dict) -> dict:
 
 
 @contextlib.contextmanager
-def aligner_split(walls: dict, segments: list):
+def aligner_split(walls: dict, segments: list, buckets: list):
     """Wrap the parts of the port's long-read aligner so that each call
     adds its host wall (s; the results come back to the host) to
     walls[part]: align_batch whole, the minimizer sketch, anchor
-    collection, the chaining DP, segment verification, and inside it the
-    K1 calls, the host re-measures (hetero.align_scaffold) and the affine
-    scores. Each K1 call appends (segments, longest pair's diagonals)."""
+    collection, the chaining DP (_chain_groups) and inside it the K4
+    calls (synchronised), segment verification, and inside it the K1
+    calls, the host re-measures (hetero.align_scaffold) and the affine
+    scores. Each K1 call appends (segments, longest pair's diagonals) to
+    `segments`, each K4 call its bucket's (cap, groups) to `buckets`."""
+    import torch
+
     from platanus_b_tpu_torch.models import hetero, longread
     from platanus_b_tpu_torch.ops import align
     aligner = longread.LongReadAligner
@@ -431,6 +444,7 @@ def aligner_split(walls: dict, segments: list):
              "sketch": (longread, "sketch"),
              "collect_groups": (aligner, "_collect_groups"),
              "chain_groups": (aligner, "_chain_groups"),
+             "chain_dp calls": (longread, "chain_dp"),
              "verify": (longread, "verify_alignments_batched"),
              "edit_distance calls": (align, "banded_edit_distance"),
              "host re-measure": (hetero, "align_scaffold"),
@@ -446,10 +460,15 @@ def aligner_split(walls: dict, segments: list):
                 segments.append((len(a[0]), max(
                     (len(x) + len(y) - 1 for x, y in zip(a[0], a[1])),
                     default=0)))
+            if name == "chain_dp calls":
+                buckets.append(tuple(a[0].shape[::-1]))
             depth["verify"] += name == "verify"
             t0 = time.perf_counter()
             try:
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
+                if name == "chain_dp calls" and a[0].is_cuda:
+                    torch.cuda.synchronize()
+                return out
             finally:
                 walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
                 depth["verify"] -= name == "verify"
@@ -726,6 +745,26 @@ ED_OPS_PER_CELL = 8
 HYBRID_SEGMENTS = 10_453
 KMER_OPS_PER_WORD = 24
 UNGAP_OPS_PER_BASE = 4
+# per link scored: the window guard, two differences, four range compares,
+# two mins, the gap and its absolute value, the table load, the conversion,
+# the add and the subtract, the lane's compare and two selects
+CHAIN_OPS_PER_LINK = 18
+# chain_dp's buckets (name, cap, groups, lookback, max_gap, k) at the
+# shapes of phases 7 and 8: map-ont chunks of 256 long reads reach caps of
+# 2048 (79 groups) and 4096 (24), the asm10 alignments of contigs against
+# the genome cap 4096 (4 groups); at 1 Mbp phase 8 also runs cap 8192
+# buckets of 3 to 8 groups and, where a whole assembly is aligned, one
+# group at cap 2**17
+CHAIN_SHAPES = [("map-ont_cap4096", 4096, 24, 25, 5000, 15),
+                ("map-ont_cap2048", 2048, 79, 25, 5000, 15),
+                ("asm10_cap4096", 4096, 4, 25, 10000, 19),
+                ("map-ont_cap8192", 8192, 8, 25, 5000, 15),
+                ("asm10_cap8192", 8192, 3, 25, 10000, 19),
+                ("asm10_cap131072", 1 << 17, 2, 25, 10000, 19)]
+# the plain version runs on the card at a shape only if the time a step it
+# took on the smaller shapes puts it under this many seconds; past that it
+# runs on a CPU copy of the same inputs
+CHAIN_PLAIN_LIMIT_S = 30.0
 
 
 def band_cells(qs, ts, bw: int) -> int:
@@ -1001,6 +1040,68 @@ def check_ungap_align(dev, data: str):
     return results
 
 
+def check_chain_dp(dev):
+    """chain_dp against its plain version at CHAIN_SHAPES, f (as uint32)
+    and prev bit for bit, on simulate.chain_dp_inputs' groups (cap/2 + 1 to
+    cap anchors each): the kernel timed over 20 launches, the plain version
+    once (about 20 eager launches a step, so its own wall is the host's),
+    on the card or, where that would pass CHAIN_PLAIN_LIMIT_S, on a CPU
+    copy of the inputs."""
+    import torch
+
+    from platanus_b_tpu_torch.ops import chain
+    from platanus_b_tpu_torch.simulate import chain_dp_inputs
+    results = []
+    plain_s_per_step = 0.0
+    for name, cap, B, H, max_gap, kk in CHAIN_SHAPES:
+        qs, ts, ns = chain_dp_inputs(cap, B, cap, max_gap, edges=False)
+        q, t, n = (torch.from_numpy(x).to(dev) for x in (qs, ts, ns))
+        table = chain.gap_cost_table(max_gap, dev)
+        steps = int(ns.max()) - 1
+        rec = {"set": name, "cap": cap, "groups": B, "lookback": H,
+               "max_gap": max_gap, "k": kk, "longest_group_steps": steps}
+        f, prev = chain.chain_dp(q, t, n, H, max_gap, kk)
+        torch.cuda.synchronize()
+        estimate = plain_s_per_step * (cap - 1)
+        if estimate <= CHAIN_PLAIN_LIMIT_S:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            wf, wp = chain.chain_dp_plain(q, t, n, H, max_gap, kk, table)
+            t1.record()
+            torch.cuda.synchronize()
+            rec["plain_ms"] = t0.elapsed_time(t1)
+            plain_s_per_step = max(plain_s_per_step,
+                                   rec["plain_ms"] / 1e3 / (cap - 1))
+        else:
+            cpu = torch.device("cpu")
+            t0 = time.perf_counter()
+            wf, wp = chain.chain_dp_plain(
+                *(torch.from_numpy(x) for x in (qs, ts, ns)), H, max_gap, kk,
+                chain.gap_cost_table(max_gap, cpu))
+            rec.update(plain_ms=None, plain_estimate_s=estimate,
+                       plain_cpu_s=time.perf_counter() - t0)
+            f, prev = f.cpu(), prev.cpu()
+        same = (torch.equal(f.view(torch.int32), wf.view(torch.int32))
+                and torch.equal(prev, wp))
+        err = max(float((f.double() - wf.double()).abs().max()),
+                  float((prev - wp).abs().max()))
+        check(same, f"chain_dp {name}: kernel != plain (max err {err})")
+        rec.update(max_abs_err=err, linked=int((wp >= 0).sum()))
+        rec["ms"] = cuda_ms(lambda: chain.chain_dp(q, t, n, H, max_gap, kk),
+                            reps=20 if cap <= 4096 else 5)
+        n_bytes = 4 * (q.numel() + t.numel() + n.numel() + table.numel()
+                       + 2 * q.numel())
+        # links a group scores: min(i, H) at step i = 1 .. n-1
+        m = np.maximum(ns.astype(np.int64) - 1, 0)
+        links = int(np.where(m <= H, m * (m + 1) // 2,
+                             H * (H + 1) // 2 + (m - H) * H).sum())
+        rec.update(**bound(n_bytes, CHAIN_OPS_PER_LINK * links),
+                   ns_per_step=1e6 * rec["ms"] / max(steps, 1))
+        results.append(with_share(rec))
+    return results
+
+
 def load_main_reads(path: str, dev):
     """The main run's reads staged on the card as assemble stages them."""
     from platanus_b_tpu_torch.models.assemble_core import stage_read_files
@@ -1132,19 +1233,24 @@ def main() -> int:
                              "replaces": "platanus_b_tpu/ops/kmer.py:25"},
             "ungap_align": {"name": "ungap_align", "route": "cuda",
                             "source": "platanus_b_tpu_torch/csrc/ungap_align.cu",
-                            "replaces": "platanus_b_tpu/models/mapper.py:374"}}
+                            "replaces": "platanus_b_tpu/models/mapper.py:374"},
+            "chain_dp": {"name": "chain_dp", "route": "cuda",
+                         "source": "platanus_b_tpu_torch/csrc/chain_dp.cu",
+                         "replaces": "platanus_b_tpu/models/longread.py:31"}}
     PHASE["name"] = "kernels"
     rng = np.random.default_rng(2024)
     ed = check_edit_distance(dev, rng)
     km = check_kmer_extract(dev, rng, load_main_reads(reads_fa, dev))
     ua = check_ungap_align(dev, round_data)
+    cd = check_chain_dp(dev)
     emit({"phase": "kernels", "ok": True, "edit_distance": ed,
-          "kmer_extract": km, "ungap_align": ua})
+          "kmer_extract": km, "ungap_align": ua, "chain_dp": cd})
     for name, recs in (("edit_distance", ed), ("kmer_extract", km),
-                       ("ungap_align", ua)):
+                       ("ungap_align", ua), ("chain_dp", cd)):
         timed = [r for r in recs if "ms" in r][0]
-        # no single PyTorch call computes any of the three functions
-        kern[name].update(max_abs_err=max(r["max_abs_err"] for r in recs),
+        # no single PyTorch call computes any of the four functions
+        kern[name].update(max_abs_err=max(r["max_abs_err"] for r in recs
+                                          if r["max_abs_err"] is not None),
                           ms=timed["ms"], plain_ms=timed["plain_ms"],
                           bound_ms=timed["bound_ms"],
                           bound_by=timed["bound_by"], library_ms=None,
@@ -1318,11 +1424,11 @@ def main() -> int:
           "made from")
     # the segments each K1 call verifies, and the walls of the aligner's
     # parts (its align_batch is the haplotig alignment)
-    segments, walls = [], {}
+    segments, walls, buckets = [], {}, []
     torch.cuda.empty_cache()
     reset_launches()
     steps = {}
-    with aligner_split(walls, segments):
+    with aligner_split(walls, segments, buckets):
         run_phasing(ph_work, lambda argv: run_cli(argv, steps))
     launches["phasing"] = dict(kernels.LAUNCHES)
     hashes = phasing_hashes(ph_work)
@@ -1333,10 +1439,12 @@ def main() -> int:
           "launches": launches["phasing"],
           "segments": [n for n, _ in segments],
           "longest_pair_diagonals": max((m for _, m in segments), default=0),
+          "chain_buckets": len(buckets),
+          "largest_buckets": sorted(buckets, reverse=True)[:8],
           "sha256": hashes, "expected_sha256": pexp["sha256"],
           "jax_cpu_wall_s": pexp.get("jax_cpu_wall_s")})
     check(ok, "phasing outputs differ from smoke_expected.json")
-    for name in ("edit_distance", "kmer_extract"):
+    for name in ("edit_distance", "kmer_extract", "chain_dp"):
         check(launches["phasing"][name] > 0,
               f"{name} never launched in the phasing flow")
 
@@ -1353,11 +1461,11 @@ def main() -> int:
           and inputs == hexp["inputs_sha256"] and HYBRID_ARGV == hexp["argv"],
           "the hybrid input differs from the one smoke_expected.json was "
           "made from")
-    segments, walls = [], {}
+    segments, walls, buckets = [], {}, []
     torch.cuda.empty_cache()
     reset_launches()
     steps = {}
-    with aligner_split(walls, segments):
+    with aligner_split(walls, segments, buckets):
         run_from(hy_work, HYBRID_ARGV, lambda argv: run_cli(argv, steps))
     launches["hybrid"] = dict(kernels.LAUNCHES)
     hashes = iterate_hashes(hy_work, "hy")
@@ -1372,12 +1480,15 @@ def main() -> int:
           "edit_distance_calls": [n for n, _ in segments],
           "segments": sum(n for n, _ in segments),
           "longest_pair_diagonals": max((m for _, m in segments), default=0),
+          "chain_buckets": len(buckets),
+          "chain_groups": sum(b for _, b in buckets),
+          "largest_buckets": sorted(buckets, reverse=True)[:8],
           "num_output_seqs": fasta_count(os.path.join(
               hy_work, "hy_iterativeAssembly.fa")),
           "sha256": hashes, "expected_sha256": hexp["sha256"],
           "jax_cpu_wall_s": hexp.get("jax_cpu_wall_s")})
     check(ok, "hybrid outputs differ from smoke_expected.json")
-    for name in ("edit_distance", "kmer_extract", "ungap_align"):
+    for name in ("edit_distance", "kmer_extract", "ungap_align", "chain_dp"):
         check(launches["hybrid"][name] > 0,
               f"{name} never launched in the hybrid iterate")
 

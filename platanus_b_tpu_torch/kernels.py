@@ -33,7 +33,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-LAUNCHES = {"edit_distance": 0, "kmer_extract": 0, "ungap_align": 0}
+LAUNCHES = {"edit_distance": 0, "kmer_extract": 0, "ungap_align": 0,
+            "chain_dp": 0}
 BUILD_INFO: dict = {}
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "platanus_ungap_align": (_ci, [_vp, _vp, _ci, _ci, _vp, _ci, _vp, _vp,
                                    _vp, _vp, _vp, _vp, _ci, _cf, _vp, _vp,
                                    _vp, _vp, _vp, _vp]),
+    "platanus_chain_dp": (_ci, [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp,
+                                _vp, _vp, _vp]),
 }
 
 _lib = None
@@ -196,3 +199,18 @@ def ungap_align(codes: torch.Tensor, lengths: torch.Tensor,
             _stream(codes))
     _check(rc, "ungap_align")
     LAUNCHES["ungap_align"] += 1
+
+
+def chain_dp(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor, H: int,
+             max_gap: int, kk: int, gap_cost: torch.Tensor, f: torch.Tensor,
+             prev: torch.Tensor) -> None:
+    """Launch csrc/chain_dp.cu on CUDA tensors the caller checked: one
+    launch for the bucket, f and prev (B, cap) written whole."""
+    lib = library()
+    B, cap = q.shape
+    with torch.cuda.device(q.device):
+        rc = lib.platanus_chain_dp(
+            q.data_ptr(), t.data_ptr(), n.data_ptr(), B, cap, H, max_gap, kk,
+            gap_cost.data_ptr(), f.data_ptr(), prev.data_ptr(), _stream(q))
+    _check(rc, "chain_dp")
+    LAUNCHES["chain_dp"] += 1

@@ -17,9 +17,11 @@ anchor-estimated matches/identity.
 Port copy of platanus_b_tpu/models/longread.py: the reference's text, its
 relative imports resolving to the port's modules (ops/minimizer, hetero,
 log). Adaptations, all where the reference runs device code:
-- ``_chain_kernel`` is the same DP as torch ops: the B groups of a bucket
-  advance together, one step per anchor, on the aligner's device; its gap
-  cost comes from a table of XLA's float32 values (ops/gapcost.py);
+- ``_chain_kernel`` calls ops/chain.py's ``chain_dp``: on a card one
+  launch of the chain_dp kernel a bucket (csrc/chain_dp.cu, a warp a
+  group), on the CPU its plain version, the B groups of a bucket advancing
+  together one step per anchor; its gap cost comes from a table of XLA's
+  float32 values (ops/gapcost.py);
 - the aligner sketches and chains on the device of select_device();
 - ``verify_alignments_batched`` branches on that device where the
   reference branches on its backend: the CPU measures segments with
@@ -36,7 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..device import select_device
-from ..ops.gapcost import chain_gap_cost
+from ..ops.chain import chain_dp
 from ..ops.minimizer import sketch
 from ..utils.log import LOG
 
@@ -44,39 +46,14 @@ from ..utils.log import LOG
 @functools.lru_cache(maxsize=None)
 def _chain_kernel(cap: int, H: int, max_gap: int, kk: int):
     """Batched colinear-chaining DP (minimap2 chain.c semantics): B anchor
-    groups (padded to `cap`) advance in parallel, one step per anchor;
-    each step scans an H-deep lookback window — the device replacement for
-    the per-anchor Python loop. q, t: (B, cap) int32; n: (B,) int32.
-    The gap cost is gathered from ops/gapcost.py's float32 table, which
-    holds the reference's XLA values bit for bit."""
-    import torch
+    groups (padded to `cap`) chained in one call — the device replacement
+    for the per-anchor Python loop. q, t: (B, cap) int32; n: (B,) int32.
+    On a card one launch of the chain_dp kernel (ops/chain.py), on the CPU
+    its plain version; both gather the gap cost from ops/gapcost.py's
+    float32 table, which holds the reference's XLA values bit for bit."""
 
     def run(q, t, n):
-        B, dev = q.shape[0], q.device
-        gap_cost = torch.from_numpy(chain_gap_cost(max_gap).copy()).to(dev)
-        offs = torch.arange(1, H + 1, device=dev)
-        rows = torch.arange(B, device=dev)
-        f = torch.full((B, cap), float(kk), dtype=torch.float32, device=dev)
-        prev = torch.full((B, cap), -1, dtype=torch.int32, device=dev)
-        for i in range(1, cap):
-            j = i - offs
-            jc = j.clamp(0, cap - 1)
-            valid = (j >= 0)[None, :] & (i < n)[:, None]
-            dq = q[:, i, None] - q[:, jc]
-            dt = t[:, i, None] - t[:, jc]
-            ok = valid & (dq > 0) & (dt > 0) & (dq <= max_gap) \
-                & (dt <= max_gap)
-            gain = torch.minimum(torch.minimum(dq, dt),
-                                 torch.full_like(dq, kk)).to(torch.float32)
-            cost = gap_cost[(dq - dt).abs().clamp(max=max_gap).long()]
-            cand = torch.where(ok, f[:, jc] + gain - cost, -torch.inf)
-            b = torch.argmax(cand, dim=1)
-            cb = cand[rows, b]
-            better = cb > f[:, i]
-            f[:, i] = torch.where(better, cb, f[:, i])
-            prev[:, i] = torch.where(better, jc[b].to(torch.int32),
-                                     prev[:, i])
-        return f, prev
+        return chain_dp(q, t, n, H, max_gap, kk)
 
     return run
 

@@ -12,8 +12,8 @@ near-tie between two predecessors, and with it the chain and the PAF
 
 g is an integer in [0, max_gap], so the port evaluates XLA's sequence of
 float32 operations once per max_gap, here in numpy, and the DP gathers the
-cost by g. The table lives on the host and is copied to the DP's device;
-every device then reads the same bits.
+cost by g. The table lives on the host, and ops/chain.py keeps a copy on
+each device that chains; every device then reads the same bits.
 """
 
 from __future__ import annotations

@@ -24,7 +24,10 @@ numpy only, so the JAX package and the port can be fed identical files.
 - ``ungap_edge_inputs``: inputs of the ungap_align kernel that reach its
   edge cases (reads shorter than a seed, N codes, slots at contig ends in
   both orientations, duplicate slots across seeds, tied maxima, and with
-  ``twins`` all-equal slots and not-ok slots ahead of their ok twins).
+  ``twins`` all-equal slots and not-ok slots ahead of their ok twins);
+- ``chain_dp_inputs``: anchor groups for the chaining DP that are hard for
+  a warp's reduction (exact ties between lookback offsets, duplicate
+  anchors, no ok link at all) beside indel-like groups.
 """
 
 from __future__ import annotations
@@ -247,3 +250,52 @@ def ungap_edge_inputs(seed: int, n_reads: int = 600, width: int = 100,
     clen = clens[cid].astype(np.int32)
     return (codes, lengths, pool, starts, ok, is_fwd, cid, ro, clen,
             float(min_identity))
+
+
+def chain_dp_inputs(seed: int, B: int, cap: int, max_gap: int,
+                    edges: bool = True):
+    """numpy inputs of ops/chain.py:chain_dp: (q, t (B, cap) int32, n (B,)
+    int32), each group sorted by (t, q) as _collect_groups sorts it, zero
+    past n. Rows cycle through four patterns:
+    - diagonal runs of steps dq = dt of 1-3 bases: along a run f grows by
+      the step, so every offset h with h * step <= kk scores the same and
+      the nearest j must win;
+    - anchors repeated up to four times: equal (q, t) anchors tie exactly;
+    - steps of 1-60 bases with indel-sized differences between dq and dt,
+      and now and then a jump of thousands of bases;
+    - steps above max_gap, so that no link is ok.
+    With `edges` the first three rows hold 0, 1 and cap anchors; the
+    others hold cap/2 + 1 to cap. Positions stay below 2**31 for cap up to
+    2**17."""
+    rng = np.random.default_rng(seed)
+    qs = np.zeros((B, cap), np.int32)
+    ts = np.zeros((B, cap), np.int32)
+    ns = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(cap // 2 + 1, cap + 1))
+        if edges and b < 3:
+            n = (0, 1, cap)[b]
+        kind = b % 4
+        if kind == 0:
+            dq = rng.choice([1, 1, 1, 2, 3], size=n)
+            dt = dq.copy()
+            brk = rng.random(n) < 0.02
+            dt[brk] += rng.integers(-40, 41, size=int(brk.sum()))
+        elif kind == 1:
+            run = np.repeat(np.arange(n), rng.integers(1, 5, size=n))[:n]
+            fresh = np.r_[True, run[1:] != run[:-1]]
+            dq = np.where(fresh, rng.integers(1, 40, size=n), 0)
+            dt = dq.copy()
+        elif kind == 2:
+            dq = rng.integers(1, 60, size=n)
+            dt = dq + rng.integers(-8, 9, size=n) * (rng.random(n) < 0.5)
+            jump = rng.random(n) < 0.05
+            dt[jump] += rng.integers(-3000, 3000, size=int(jump.sum()))
+        else:
+            dq = rng.integers(max_gap + 1, max_gap + 100, size=n)
+            dt = dq + rng.integers(-5, 6, size=n)
+        q = 100 + np.cumsum(dq)
+        t = 100 + np.cumsum(np.maximum(dt, 0))
+        order = np.lexsort((q, t))
+        qs[b, :n], ts[b, :n], ns[b] = q[order], t[order], n
+    return qs, ts, ns

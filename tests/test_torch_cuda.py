@@ -16,9 +16,11 @@ import simdata
 from platanus_b_tpu_torch import kernels
 from platanus_b_tpu_torch.commands.main import main as port_main
 from platanus_b_tpu_torch.models import mapper as tmapper
+from platanus_b_tpu_torch.models import longread as tlongread
 from platanus_b_tpu_torch.ops import align as talign
+from platanus_b_tpu_torch.ops import chain as tchain
 from platanus_b_tpu_torch.ops import kmer as tkmer
-from platanus_b_tpu_torch.simulate import ungap_edge_inputs
+from platanus_b_tpu_torch.simulate import chain_dp_inputs, ungap_edge_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -45,7 +47,7 @@ def _mutate(rng, s, n_sub, n_ins, n_del):
 
 def test_kernels_build(dev):
     kernels.library()
-    assert len(kernels.BUILD_INFO["paths"]) == 3
+    assert len(kernels.BUILD_INFO["paths"]) == 4
     assert all(p.endswith(".so") for p in kernels.BUILD_INFO["paths"])
 
 
@@ -262,10 +264,11 @@ def test_edit_distance_kernel_matches_plain(dev, band, shape):
 @pytest.mark.parametrize("max_gap,kk", [(5000, 15), (10000, 19)],
                          ids=["map-ont", "asm10"])
 def test_chain_kernel_on_card_matches_cpu(dev, max_gap, kk):
-    """The chaining DP (models/longread.py:_chain_kernel) on the card
-    against the same call on the CPU, f and prev bit for bit, on anchor
-    groups whose candidate links have gap sizes g from 1 to max_gap; and
-    the gap-cost table gathered on the card equals the CPU's."""
+    """The chaining DP (models/longread.py:_chain_kernel) on the card, K4,
+    against the same call on the CPU, its plain version, f and prev bit for
+    bit, on anchor groups whose candidate links have gap sizes g from 1 to
+    max_gap; and the gap-cost table gathered on the card equals the
+    CPU's."""
     from platanus_b_tpu_torch.models.longread import _chain_kernel
     from platanus_b_tpu_torch.ops.gapcost import chain_gap_cost
     table = chain_gap_cost(max_gap)
@@ -305,6 +308,50 @@ def test_chain_kernel_on_card_matches_cpu(dev, max_gap, kk):
                           cf.numpy().view(np.uint32))
     assert torch.equal(gp.cpu(), cp)
     assert (cp >= 0).sum() > B
+
+
+@pytest.mark.parametrize("cap,B,H,max_gap,kk", [
+    pytest.param(16, 157, 25, 5000, 15, id="cap16_H25"),
+    pytest.param(128, 23, 40, 5000, 15, id="cap128_H40"),
+    pytest.param(512, 57, 25, 5000, 15, id="cap512_H25"),
+    pytest.param(1024, 87, 40, 5000, 15, id="cap1024_H40"),
+    pytest.param(2048, 79, 25, 5000, 15, id="cap2048_H25"),
+    pytest.param(4096, 24, 40, 5000, 15, id="cap4096_H40"),
+    pytest.param(4096, 6, 25, 10000, 19, id="cap4096_H25_asm10"),
+    pytest.param(512, 12, 160, 10000, 19, id="cap512_H160_memory_window"),
+    pytest.param(1 << 16, 6, 25, 10000, 19, id="one_group_cap65536")])
+def test_chain_dp_kernel_matches_plain(dev, cap, B, H, max_gap, kk):
+    """K4 (csrc/chain_dp.cu) against chain_dp_plain on the card, f and prev
+    bit for bit, on simulate.chain_dp_inputs' tie-heavy groups (rows of 0,
+    1 and cap anchors, duplicates, unit diagonals, no ok link; with B >= 6
+    the duplicate and unit-diagonal rows run at long n), one launch a
+    bucket; H 40 and 160 take the kernel's window from memory."""
+    qs, ts, ns = chain_dp_inputs(cap + H, B, cap, max_gap)
+    args = [torch.from_numpy(x).to(dev) for x in (qs, ts, ns)]
+    before = kernels.LAUNCHES["chain_dp"]
+    f, prev = tchain.chain_dp(*args, H, max_gap, kk)
+    assert kernels.LAUNCHES["chain_dp"] == before + 1
+    wf, wp = tchain.chain_dp_plain(*args, H, max_gap, kk,
+                                   tchain.gap_cost_table(max_gap, dev))
+    assert np.array_equal(f.cpu().numpy().view(np.uint32),
+                          wf.cpu().numpy().view(np.uint32))
+    assert torch.equal(prev.cpu(), wp.cpu())
+    assert (wp >= 0).sum() > cap // 2
+
+
+def test_chain_kernel_on_card_launches_k4(dev, monkeypatch):
+    """_chain_kernel on CUDA tensors makes one chain_dp launch and never
+    runs the plain version."""
+    def no_plain(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    monkeypatch.setattr(tchain, "chain_dp_plain", no_plain)
+    qs, ts, ns = chain_dp_inputs(5, 40, 256, 5000)
+    before = kernels.LAUNCHES["chain_dp"]
+    f, prev = tlongread._chain_kernel(256, 25, 5000, 15)(
+        *(torch.from_numpy(x).to(dev) for x in (qs, ts, ns)))
+    assert kernels.LAUNCHES["chain_dp"] == before + 1
+    assert f.is_cuda and prev.is_cuda and tuple(f.shape) == (40, 256)
 
 
 def test_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
