@@ -15,7 +15,10 @@ Phases, one JSON line each; any failure exits non-zero:
    slots its bound is taken over; for edit_distance with the diagonals of
    its longest pair and the time per diagonal, for chain_dp with the steps
    of its longest group and the time per step, since those serial chains
-   and not the bound set their times), edit_distance on one set per tier,
+   and not the bound set their times; chain_dp also against a second
+   bound, its serial chain: the longest group's steps times
+   CHAIN_CYCLES_PER_STEP over the SM clock that nvidia-smi reads while
+   the kernel runs), edit_distance on one set per tier,
    and chain_dp (f and prev bit for bit) on the buckets of phases 7 and 8:
    map-ont at caps 2048, 4096 and 8192, asm10 at caps 4096 and 8192, and
    one group pair at cap 2**17, whose plain version runs on the card when
@@ -693,6 +696,21 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": int(n_bytes), "operations": int(n_ops)}
 
 
+def sm_clock_mhz(fn, call_ms: float, seconds: float = 0.5) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while `fn` runs: about
+    `seconds` of calls are queued on the card first, so that the card is
+    busy with them when the reading is taken."""
+    import torch
+    for _ in range(max(1, int(1e3 * seconds / max(call_ms, 1e-3)))):
+        fn()
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    torch.cuda.synchronize()
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0])
+
+
 def with_share(rec: dict) -> dict:
     rec["roofline_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else None
     return rec
@@ -749,6 +767,12 @@ UNGAP_OPS_PER_BASE = 4
 # two mins, the gap and its absolute value, the table load, the conversion,
 # the add and the subtract, the lane's compare and two selects
 CHAIN_OPS_PER_LINK = 18
+# chain_dp's serial chain: the cycles from f[i-1] to f[i] that no design
+# can take off it (csrc/chain_dp.cu's head note), about 4 cycles for each
+# dependent float32 operation: the add f[i-1] + gain(i, 1) (4), the
+# subtract of cost(i, 1) (4), and the max with the best of the other
+# candidates and kk (4), which is argmax's compare and select in one
+CHAIN_CYCLES_PER_STEP = 4 + 4 + 4
 # chain_dp's buckets (name, cap, groups, lookback, max_gap, k) at the
 # shapes of phases 7 and 8: map-ont chunks of 256 long reads reach caps of
 # 2048 (79 groups) and 4096 (24), the asm10 alignments of contigs against
@@ -1098,6 +1122,13 @@ def check_chain_dp(dev):
                              H * (H + 1) // 2 + (m - H) * H).sum())
         rec.update(**bound(n_bytes, CHAIN_OPS_PER_LINK * links),
                    ns_per_step=1e6 * rec["ms"] / max(steps, 1))
+        # the second bound: the longest group's serial chain at the SM
+        # clock the card ran the kernel at
+        mhz = sm_clock_mhz(lambda: chain.chain_dp(q, t, n, H, max_gap, kk),
+                           rec["ms"])
+        rec.update(sm_clock_mhz=mhz, chain_bound_ms=(
+            steps * CHAIN_CYCLES_PER_STEP / (mhz * 1e3)))
+        rec["chain_share"] = rec["chain_bound_ms"] / rec["ms"]
         results.append(with_share(rec))
     return results
 
@@ -1256,6 +1287,9 @@ def main() -> int:
                           bound_by=timed["bound_by"], library_ms=None,
                           roofline_share=timed["roofline_share"],
                           timed_set=timed["set"])
+    # chain_dp's second bound, its serial chain (phase 2)
+    kern["chain_dp"].update({key: cd[0][key] for key in (
+        "ns_per_step", "chain_bound_ms", "chain_share", "sm_clock_mhz")})
     torch.cuda.empty_cache()
     launches = {}
 

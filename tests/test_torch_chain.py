@@ -107,3 +107,71 @@ def test_chain_dp_refuses_bad_inputs(bad):
         H = 0
     with pytest.raises(ValueError):
         tchain.chain_dp(q, t, n, H, 5000, 15)
+
+
+def _split_pick_dp(qs, ts, ns, H, max_gap, kk, D, raised):
+    """The chaining DP in numpy with chain_dp.cu's split pick: at step i the
+    first maximum of [cand(1), .., cand(D), M], M the first maximum over
+    h > D, so that a near h wins a tie with M. With `raised`, every h > D
+    candidate is first raised to kk, as the kernel raises them before its
+    warp reduction, and M's h is the smallest h holding the raised
+    maximum; f[i] is then max(the pick, kk)."""
+    B, cap = qs.shape
+    table = chain_gap_cost(max_gap)
+    f = np.full((B, cap), np.float32(kk), np.float32)
+    prev = np.full((B, cap), -1, np.int32)
+    h = np.arange(1, H + 1)
+    q, t = qs.astype(np.int64), ts.astype(np.int64)
+    for i in range(1, cap):
+        j = np.maximum(i - h, 0)
+        dq, dt = q[:, i, None] - q[:, j], t[:, i, None] - t[:, j]
+        ok = ((i - h >= 0)[None, :] & (i < ns)[:, None] & (dq > 0)
+              & (dt > 0) & (dq <= max_gap) & (dt <= max_gap))
+        gain = np.minimum(np.minimum(dq, dt), kk).astype(np.float32)
+        cost = table[np.minimum(np.abs(dq - dt), max_gap)]
+        cand = np.where(ok, (f[:, j] + gain) - cost, np.float32(-np.inf))
+        far = cand[:, D:]
+        if raised:
+            far = np.maximum(far, np.float32(kk))
+        if far.shape[1]:
+            far_h = D + np.argmax(far, axis=1)
+            far_v = far[np.arange(B), far_h - D]
+        else:
+            far_h = np.zeros(B, np.int64)
+            far_v = np.full(B, -np.inf, np.float32)
+        picks = np.concatenate([cand[:, :D], far_v[:, None]], axis=1)
+        first = np.argmax(picks, axis=1)
+        best = picks[np.arange(B), first]
+        hb = np.where(first < D, first, far_h)
+        better = best > f[:, i]
+        f[:, i] = np.where(better, best, f[:, i])
+        prev[:, i] = np.where(better, i - 1 - hb, prev[:, i])
+    return f, prev
+
+
+@pytest.mark.parametrize("raised", [False, True], ids=["split", "raised"])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("cap,H,max_gap,kk", [
+    pytest.param(64, 25, 5000, 15, id="cap64_map-ont"),
+    pytest.param(128, 25, 10000, 19, id="cap128_asm10"),
+    pytest.param(48, 2, 5000, 15, id="cap48_H2")])
+def test_split_pick_matches_argmax(cap, H, max_gap, kk, D, raised):
+    """The algebra chain_dp.cu's register kernel rests on, where there is no
+    card: the first maximum of the D nearest candidates and the first
+    maximum over h > D (raised to kk or not) picks what argmax over all h
+    picks, f and prev bit for bit against chain_dp_plain and the JAX
+    package's _chain_kernel, on simulate.chain_dp_inputs' tie-heavy
+    groups."""
+    qs, ts, ns = chain_dp_inputs(cap + 7 * D + H, 16, cap, max_gap)
+    sf, sp = _split_pick_dp(qs, ts, ns, H, max_gap, kk, D, raised)
+    jf, jp = jlongread._chain_kernel(cap, H, max_gap, kk)(
+        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(ns))
+    tf, tp = tchain.chain_dp_plain(
+        *(torch.from_numpy(x) for x in (qs, ts, ns)), H, max_gap, kk,
+        tchain.gap_cost_table(max_gap, CPU))
+    for f, p in ((np.asarray(jf), np.asarray(jp)), (tf.numpy(), tp.numpy())):
+        assert np.array_equal(sf.view(np.uint32), f.view(np.uint32))
+        assert np.array_equal(sp, p)
+    # ties the split must settle: the nearest of tied offsets, h <= D
+    # against h > D among them
+    assert _tied_steps(qs, ts, ns, sf, sp, H, max_gap, kk) > cap // 2

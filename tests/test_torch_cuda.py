@@ -319,13 +319,16 @@ def test_chain_kernel_on_card_matches_cpu(dev, max_gap, kk):
     pytest.param(4096, 24, 40, 5000, 15, id="cap4096_H40"),
     pytest.param(4096, 6, 25, 10000, 19, id="cap4096_H25_asm10"),
     pytest.param(512, 12, 160, 10000, 19, id="cap512_H160_memory_window"),
+    pytest.param(512, 12, 25, 60000, 19, id="cap512_H25_table_past_smem"),
     pytest.param(1 << 16, 6, 25, 10000, 19, id="one_group_cap65536")])
 def test_chain_dp_kernel_matches_plain(dev, cap, B, H, max_gap, kk):
     """K4 (csrc/chain_dp.cu) against chain_dp_plain on the card, f and prev
     bit for bit, on simulate.chain_dp_inputs' tie-heavy groups (rows of 0,
     1 and cap anchors, duplicates, unit diagonals, no ok link; with B >= 6
     the duplicate and unit-diagonal rows run at long n), one launch a
-    bucket; H 40 and 160 take the kernel's window from memory."""
+    bucket; H 40 and 160 take the kernel's window from memory, and so
+    does H 25 where the gap cost table (max_gap 60000) passes a block's
+    shared memory."""
     qs, ts, ns = chain_dp_inputs(cap + H, B, cap, max_gap)
     args = [torch.from_numpy(x).to(dev) for x in (qs, ts, ns)]
     before = kernels.LAUNCHES["chain_dp"]
@@ -337,6 +340,71 @@ def test_chain_dp_kernel_matches_plain(dev, cap, B, H, max_gap, kk):
                           wf.cpu().numpy().view(np.uint32))
     assert torch.equal(prev.cpu(), wp.cpu())
     assert (wp >= 0).sum() > cap // 2
+
+
+def _residue_chains(x, step, n, cap):
+    """One group of n anchors in x interleaved diagonal chains: anchor i
+    lies on chain i mod x, `step` bases past the chain's previous anchor,
+    and the chains lie 200,000 bases apart, so only links from i - h with
+    h a multiple of x are ok, and those only while (h / x) * step <=
+    max_gap. With step 1 every such h within kk ties, so the pick is
+    h = x."""
+    i = np.arange(n)
+    pos = 100 + (i // x) * step + (i % x) * 200_000
+    q = np.zeros(cap, np.int32)
+    q[:n] = pos
+    return q, q.copy()
+
+
+# the kernel's split pick (csrc/chain_dp.cu): the kD = 2 nearest candidates
+# on the serial chain, the first maximum over h > kD reduced ahead; the
+# cases put the pick at h = 1 .. 3 and at H, on ties and alone, so that a
+# near h must win a tie with the far maximum and the far maximum must
+# take its smallest h
+SPLIT_CASES = {
+    "h1_ties_far_max": (1, 1), "h2_ties_farther": (2, 1),
+    "h3_ties_farther": (3, 1), "only_h1": (1, 3333), "only_h2": (2, 3333),
+    "only_h3": (3, 3333), "only_hH": (25, 3333)}
+
+
+@pytest.mark.parametrize("case", [*SPLIT_CASES, "n_small", "tile_edges"])
+def test_chain_dp_kernel_split_cases(dev, case):
+    """K4 against chain_dp_plain, f and prev bit for bit, on groups built
+    for the split pick and the kernel's 32-step tiles: the pick alone or
+    tied at h = 1, 2, 3 and H = 25 (_residue_chains); groups of 0 to 4
+    anchors; groups ending on either side of the first four tile edges
+    (the q/t ring holds four tiles), with anchors past n left in place."""
+    H, max_gap, kk, cap = 25, 5000, 15, 512
+    if case in SPLIT_CASES:
+        x, step = SPLIT_CASES[case]
+        ns = np.array([cap, cap - 7, 300, 40], np.int32)
+        rows = [_residue_chains(x, step, int(n), cap) for n in ns]
+        qs = np.stack([r[0] for r in rows])
+        ts = np.stack([r[1] for r in rows])
+    else:
+        qs, ts, ns = chain_dp_inputs(31, 24, cap, max_gap, edges=False)
+        ns = np.array([0, 1, 2, 3, 4, 0, 1, 2] * 3 if case == "n_small" else
+                      [31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129,
+                       159, 160, 161, 255, 256, 257, 30, 34, 62, 66, 511,
+                       512], np.int32)
+        # rows of every pattern take each length (chain_dp_inputs cycles
+        # through four patterns by row)
+        qs, ts = np.roll(qs, 1, axis=0), np.roll(ts, 1, axis=0)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (qs, ts, ns)]
+    f, prev = tchain.chain_dp(*args, H, max_gap, kk)
+    wf, wp = tchain.chain_dp_plain(*args, H, max_gap, kk,
+                                   tchain.gap_cost_table(max_gap, dev))
+    assert np.array_equal(f.cpu().numpy().view(np.uint32),
+                          wf.cpu().numpy().view(np.uint32))
+    assert torch.equal(prev.cpu(), wp.cpu())
+    if case in SPLIT_CASES:   # the groups are as intended
+        x = SPLIT_CASES[case][0]
+        for b, n in enumerate(ns.tolist()):
+            i = np.arange(x, n)
+            assert (wp[b, x:n].cpu().numpy() == i - x).all()
+    elif case == "tile_edges":
+        assert (wp >= 0).sum() > 1000
 
 
 def test_chain_kernel_on_card_launches_k4(dev, monkeypatch):
