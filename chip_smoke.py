@@ -27,7 +27,20 @@ Phases, one JSON line each; any failure exits non-zero:
 3. the main path: `assemble -k 32` through the port's CLI on the parity
    dataset (parity/run_parity.py:121 simulate(genome_bp, 125, 40, 0.003,
    123)); the sorted canonical contig set must hash to the value recorded
-   in parity/PARITY_assemble_<genome_bp>.json;
+   in parity/PARITY_assemble_<genome_bp>.json, and kmer_extract,
+   list_rank and lex_search must have run. The run records the inputs of
+   its largest labeling's first doubling pass and of its largest lookups
+   (the graph's adjacency, keys of several lanes and of one lane); then,
+   in phase 2's format (the "graph_kernels" line, launches not counted),
+   list_rank against its plain version (ptr, rank, anchor, the steps that
+   did work and the live flag bit for bit) on that pass and on the two
+   passes and the min-pair loop of a synthetic labeling of the same size
+   whose one junction-free cycle holds half of the oriented ids
+   (simulate.label_links), each with the steps that did work and the
+   time a step; lex_search against its plain version on the adjacency's
+   lookup, and at one lane beside torch.searchsorted on the same data
+   (the library call lookup keeps there). Bounds count each input read
+   once and each output written once;
 4. the bubble configuration: `assemble -u 0.1` on two haplotypes; the
    output files must hash to platanus_b_tpu_torch/smoke_expected.json
    (made by the JAX package on the CPU) and the edit_distance kernel must
@@ -37,9 +50,11 @@ Phases, one JSON line each; any failure exits non-zero:
    `kmer_divide`, `polish`, `gap_close -reduce_redundancy` and `merge` on
    the gap-closing dataset of parity/gapclose_bench.py:50-72 (a 1.2 Mbp
    scaffold with 1,000 gaps, 240,240 read pairs, made with tests/simdata.py);
-   every output file must hash to smoke_expected.json, and kmer_extract
-   and ungap_align must have run; then the round once more under
-   torch.profiler for the card's busy share of each command;
+   every output file must hash to smoke_expected.json, and kmer_extract,
+   ungap_align and lex_search must have run; lex_search's range mode
+   against its plain version on the largest lookup_range of polish (the
+   mapper's padded index; the "mapper_kernels" line); then the round once
+   more under torch.profiler for the card's busy share of each command;
 6. a whole `iterate -i 1` through the port's CLI (count, kmer_divide,
    solve_dbg -unphase, polish, gap_close, final divide, final polish) on
    phase 5's reads and its scaffold split at the gaps into 1,001 contigs;
@@ -1133,6 +1148,161 @@ def check_chain_dp(dev):
     return results
 
 
+# K5 and K6: the graph layer's device loops, at the shapes the main path
+# gives them (inputs recorded in phases 3 and 5) and on a synthetic
+# labeling of the same size whose one junction-free cycle holds half of
+# the oriented ids, as a clean circular chromosome's two strands do
+
+LINK_MEAN_CHAIN = 300
+
+
+@contextlib.contextmanager
+def record_calls(module, name: str, size=None):
+    """module.<name> wrapped for the block; yields a list that receives
+    each call's arguments (tensors cloned). With `size`, the list holds
+    only the call of the largest size(args) so far, the first of equal
+    ones; a call whose size is negative is never kept."""
+    import torch
+    orig = getattr(module, name)
+    calls: list = []
+    best = [-1]
+
+    def wrapper(*args):
+        key = size(args) if size is not None else 0
+        if size is None or key > best[0]:
+            kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args)
+            if size is None:
+                calls.append(kept)
+            else:
+                best[0] = key
+                calls[:] = [kept]
+        return orig(*args)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _max_err(got, want) -> int:
+    return max((int((g - w).abs().max()) if g.numel() else 0)
+               for g, w in zip(got, want))
+
+
+def check_list_rank(dev, main_call, label: str):
+    """list_rank against its plain version: the first doubling pass of the
+    main path's largest labeling (`main_call`, recorded in phase 3), then
+    the two passes and the min-pair loop of a synthetic labeling of the
+    same m whose cycle holds half of the ids (simulate.label_links). ptr,
+    rank, anchor, the min pairs, the steps that did work and the live flag
+    bit for bit; the kernel timed over 5 calls, the plain version over 2."""
+    import torch
+
+    from platanus_b_tpu_torch.models import dbg
+    from platanus_b_tpu_torch.ops import rank
+    from platanus_b_tpu_torch.simulate import label_links
+    m, iters = main_call[0].shape[0], main_call[3]
+    nxt = torch.from_numpy(label_links(5, m // 2, 0.5,
+                                       LINK_MEAN_CHAIN)).to(dev)
+    with record_calls(dbg, "doubling_rank") as passes, \
+            record_calls(dbg, "cycle_min_pair") as pairs:
+        dbg._rank_chains(nxt, iters)
+    check(len(passes) == 2 and len(pairs) == 1,
+          "the half-cycle labeling did not cut its cycle")
+    sets = [(label, main_call), ("half_cycle_pass1", passes[0]),
+            ("half_cycle_min_pair", pairs[0]), ("half_cycle_pass2", passes[1])]
+    results = []
+    for name, args in sets:
+        rec = {"set": name, "m": m, "iters": iters}
+        if name.endswith("min_pair"):
+            kernel = lambda args=args: rank.cycle_min_pair(*args)
+            plain = lambda args=args: rank.cycle_min_pair_plain(*args)
+            got, want = kernel(), plain()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            steps = iters
+            # ptr, a, b read once; a, b written once
+            n_bytes, n_ops = 40 * m, 3 * iters * m
+        else:
+            kernel = lambda args=args: rank.doubling_rank(*args)
+            plain = lambda args=args: rank.doubling_rank_plain(*args)
+            got, want = kernel(), plain()
+            steps = want[3]
+            live = int((want[0] >= 0).any())
+            same = (all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+                    and got[3].tolist() == [steps, live])
+            rec["live_after"] = live
+            # ptr read once; ptr, rank, anchor written once; an add and a
+            # compare an id a step
+            n_bytes, n_ops = 32 * m, 2 * steps * m
+        torch.cuda.synchronize()
+        err = _max_err(got[:3], want[:3])
+        check(same, f"list_rank {name}: kernel != plain (max err {err})")
+        rec.update(steps_that_worked=steps, max_abs_err=err,
+                   ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, reps=2),
+                   **bound(n_bytes, n_ops))
+        rec["ns_per_step"] = 1e6 * rec["ms"] / max(steps, 1)
+        results.append(with_share(rec))
+    return results
+
+
+def check_lex_search(dev, sets):
+    """lex_search against its plain version on recorded calls: `sets` is
+    a list of (name, mode, args), mode "lookup" (the wrapper's lookup;
+    args table, queries), "lookup_l1" (the kernel's lookup mode at one
+    lane, which lookup leaves to torch.searchsorted, timed beside it) or
+    "range" (lookup_range; args table, queries, table_len). Outputs bit
+    for bit; the kernel timed over 20 calls, the plain version over 2."""
+    import torch
+
+    from platanus_b_tpu_torch import kernels
+    from platanus_b_tpu_torch.ops import search
+    results = []
+    for name, mode, args in sets:
+        table, queries = args[0], args[1]
+        n = int(args[2]) if len(args) > 2 and args[2] is not None \
+            else table.shape[0]
+        M, L = queries.shape
+        rec = {"set": name, "mode": mode, "rows": n,
+               "capacity": table.shape[0], "queries": M, "lanes": L}
+        library = None
+        if mode == "range":
+            kernel = lambda: search.lookup_range(table, queries, n)
+            plain = lambda: search.lookup_range_plain(table, queries, n)
+            outs = 2
+        else:
+            outs = 1
+            if mode == "lookup":
+                kernel = lambda: (search.lookup(table, queries),)
+            else:
+                def kernel():
+                    out = torch.empty(M, dtype=torch.int64, device=dev)
+                    kernels.lex_search(table, queries, n, search._steps(n),
+                                       kernels.LEX_LOOKUP, out)
+                    return (out,)
+                col = table[:n, 0].contiguous()
+                qcol = queries[:, 0].contiguous()
+                library = lambda: torch.searchsorted(col, qcol)
+            plain = lambda: (search.lookup_plain(table, queries, n),)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"lex_search {name}: kernel != plain (max err {err})")
+        steps = search._steps(table.shape[0] if mode == "range" else n)
+        # the table's live rows and the queries read once, the outputs
+        # written once; a compare a lane a step
+        rec.update(max_abs_err=err, steps=steps, ms=cuda_ms(kernel, reps=20),
+                   plain_ms=cuda_ms(plain, reps=2),
+                   library_ms=cuda_ms(library, reps=20) if library else None,
+                   found=int((want[0] >= 0).sum()) if outs == 1 else None,
+                   **bound(8 * (L * (n + M) + outs * M),
+                           outs * steps * L * M))
+        results.append(with_share(rec))
+    return results
+
+
 def load_main_reads(path: str, dev):
     """The main run's reads staged on the card as assemble stages them."""
     from platanus_b_tpu_torch.models.assemble_core import stage_read_files
@@ -1267,7 +1437,13 @@ def main() -> int:
                             "replaces": "platanus_b_tpu/models/mapper.py:374"},
             "chain_dp": {"name": "chain_dp", "route": "cuda",
                          "source": "platanus_b_tpu_torch/csrc/chain_dp.cu",
-                         "replaces": "platanus_b_tpu/models/longread.py:31"}}
+                         "replaces": "platanus_b_tpu/models/longread.py:31"},
+            "list_rank": {"name": "list_rank", "route": "cuda",
+                          "source": "platanus_b_tpu_torch/csrc/list_rank.cu",
+                          "replaces": "platanus_b_tpu/models/dbg.py:191"},
+            "lex_search": {"name": "lex_search", "route": "cuda",
+                           "source": "platanus_b_tpu_torch/csrc/lex_search.cu",
+                           "replaces": "platanus_b_tpu/ops/search.py:26"}}
     PHASE["name"] = "kernels"
     rng = np.random.default_rng(2024)
     ed = check_edit_distance(dev, rng)
@@ -1293,12 +1469,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = {}
 
-    # ---- phase 3: the main path at the parity scale
+    # ---- phase 3: the main path at the parity scale, recording the
+    # inputs of its largest labeling and lookups for K5 and K6
     PHASE["name"] = "main_path"
+    from platanus_b_tpu_torch.models import dbg as dbg_mod
     reset_launches()
     prefix = os.path.join(work, f"out_{gbp}")
     steps: dict = {}
-    run_cli(["assemble", "-f", reads_fa, "-k", "32", "-o", prefix], steps)
+    with record_calls(dbg_mod, "doubling_rank",
+                      lambda a: a[0].shape[0]) as rank_call, \
+            record_calls(dbg_mod, "lookup", lambda a: a[0].shape[0]
+                         if a[0].shape[1] > 1 else -1) as adj_call, \
+            record_calls(dbg_mod, "lookup", lambda a: a[0].shape[0]
+                         if a[0].shape[1] == 1 else -1) as l1_call:
+        run_cli(["assemble", "-f", reads_fa, "-k", "32", "-o", prefix], steps)
     launches["main_path"] = dict(kernels.LAUNCHES)
     seqs = read_fasta(prefix + "_contig.fa")
     got = sorted_set_sha256(seqs)
@@ -1321,8 +1505,37 @@ def main() -> int:
         rec["error"] = f"no parity record {os.path.relpath(ref_path, REPO)}"
     emit(rec)
     check(rec["ok"], "contig set differs from the parity record")
-    check(launches["main_path"]["kmer_extract"] > 0, "kmer_extract never launched")
+    for name in ("kmer_extract", "list_rank", "lex_search"):
+        check(launches["main_path"][name] > 0, f"{name} never launched")
     main_wall, parity_sha = rec["wall_s"], rec["expected_sha256"]
+
+    # K5 and K6 against their plain versions at phase 3's shapes (phase 2's
+    # format; launches here do not count)
+    PHASE["name"] = "graph_kernels"
+    check(rank_call and adj_call and l1_call,
+          "phase 3 recorded no labeling or lookup")
+    lr = check_list_rank(dev, rank_call[0], f"labeling_{gbp}")
+    lx = check_lex_search(dev, [("adjacency_lanes", "lookup", adj_call[0]),
+                                ("adjacency_k32_l1", "lookup_l1",
+                                 l1_call[0])])
+    del rank_call[:], adj_call[:], l1_call[:]
+    emit({"phase": "graph_kernels", "ok": True, "list_rank": lr,
+          "lex_search": lx})
+    # no single PyTorch call ranks a list; none searches keys of several
+    # lanes (the one-lane row holds torch.searchsorted's time)
+    kern["list_rank"].update(
+        max_abs_err=max(r["max_abs_err"] for r in lr), library_ms=None,
+        **{key: lr[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "roofline_share",
+                                       "steps_that_worked")},
+        timed_set=lr[0]["set"])
+    kern["lex_search"].update(
+        max_abs_err=max(r["max_abs_err"] for r in lx), library_ms=None,
+        **{key: lx[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "roofline_share")},
+        timed_set=lx[0]["set"], l1_ms=lx[1]["ms"],
+        l1_searchsorted_ms=lx[1]["library_ms"])
+    torch.cuda.empty_cache()
 
     # ---- phase 4: the bubble configuration
     PHASE["name"] = "bubble"
@@ -1357,7 +1570,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     reset_launches()
     steps = {}
-    run_round(round_work, round_data, lambda argv: run_cli(argv, steps))
+    from platanus_b_tpu_torch.models import mapper as mapper_mod
+    range_call: list = []
+
+    def round_step(argv):
+        """One command of the round; polish records its largest
+        lookup_range for K6."""
+        if argv[0] != "polish":
+            return run_cli(argv, steps)
+        with record_calls(mapper_mod, "lookup_range",
+                          lambda a: a[1].shape[0]) as calls:
+            rc = run_cli(argv, steps)
+        range_call.extend(calls)
+        return rc
+
+    run_round(round_work, round_data, round_step)
     launches["round"] = dict(kernels.LAUNCHES)
     hashes = round_hashes(round_work)
     ok = hashes == rexp["sha256"]
@@ -1365,8 +1592,18 @@ def main() -> int:
           "expected_sha256": rexp["sha256"], "launches": launches["round"],
           "steps": steps, "jax_cpu_wall_s": rexp.get("jax_cpu_wall_s")})
     check(ok, "round outputs differ from smoke_expected.json")
-    for name in ("kmer_extract", "ungap_align"):
+    for name in ("kmer_extract", "ungap_align", "lex_search"):
         check(launches["round"][name] > 0, f"{name} never launched in the round")
+    PHASE["name"] = "mapper_kernels"
+    check(len(range_call) == 1, "polish recorded no lookup_range")
+    lm = check_lex_search(dev, [("polish_index", "range", range_call[0])])
+    del range_call[:]
+    emit({"phase": "mapper_kernels", "ok": True, "lex_search": lm})
+    kern["lex_search"].update(range_ms=lm[0]["ms"],
+                              range_plain_ms=lm[0]["plain_ms"],
+                              max_abs_err=max(kern["lex_search"]["max_abs_err"],
+                                              lm[0]["max_abs_err"]))
+    PHASE["name"] = "round"
     # the round once more under torch.profiler: the card's idle share of
     # each command, against the unprofiled wall above
     prof_work = os.path.join(work, "round_profiled")

@@ -34,10 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 LAUNCHES = {"edit_distance": 0, "kmer_extract": 0, "ungap_align": 0,
-            "chain_dp": 0}
+            "chain_dp": 0, "list_rank": 0, "lex_search": 0}
 BUILD_INFO: dict = {}
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_cll = ctypes.c_longlong
 # C entry points: name -> (restype, argtypes)
 _SIGNATURES = {
     "platanus_edit_distance": (_ci, [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci,
@@ -50,6 +51,12 @@ _SIGNATURES = {
                                    _vp, _vp, _vp, _vp]),
     "platanus_chain_dp": (_ci, [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp,
                                 _vp, _vp, _vp]),
+    "platanus_list_rank": (_ci, [_vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci,
+                                 _vp, _vp, _vp]),
+    "platanus_min_pair": (_ci, [_vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci,
+                                _vp]),
+    "platanus_lex_search": (_ci, [_vp, _vp, _cll, _ci, _cll, _cll, _ci, _ci,
+                                  _vp, _vp, _vp]),
 }
 
 _lib = None
@@ -214,3 +221,59 @@ def chain_dp(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor, H: int,
             gap_cost.data_ptr(), f.data_ptr(), prev.data_ptr(), _stream(q))
     _check(rc, "chain_dp")
     LAUNCHES["chain_dp"] += 1
+
+
+def list_rank(bufs: list[torch.Tensor], scratch: list[torch.Tensor],
+              iters: int, stats: torch.Tensor) -> None:
+    """Launch csrc/list_rank.cu's pointer doubling on CUDA tensors the
+    caller checked: bufs = [ptr, rank, anchor] (m,) int64, read as the
+    input and written with the result; scratch, three more of the same;
+    stats (2,) int64 receives the steps that did work and the live flag."""
+    lib = library()
+    m = bufs[0].shape[0]
+    flags = torch.empty(iters + 2, dtype=torch.int32, device=stats.device)
+    with torch.cuda.device(stats.device):
+        rc = lib.platanus_list_rank(
+            *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in scratch),
+            m, iters, flags.data_ptr(), stats.data_ptr(), _stream(stats))
+    _check(rc, "list_rank")
+    LAUNCHES["list_rank"] += 1
+
+
+def min_pair(bufs: list[torch.Tensor], scratch: list[torch.Tensor],
+             iters: int) -> None:
+    """Launch csrc/list_rank.cu's min-pair propagation on CUDA tensors the
+    caller checked: bufs = [ptr, a, b] (m,) int64 and scratch alike; step
+    s reads bufs if s is even, else scratch, and writes the other."""
+    lib = library()
+    m = bufs[0].shape[0]
+    with torch.cuda.device(bufs[0].device):
+        rc = lib.platanus_min_pair(
+            *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in scratch),
+            m, iters, _stream(bufs[0]))
+    _check(rc, "list_rank (min pair)")
+    LAUNCHES["list_rank"] += 1
+
+
+# csrc/lex_search.cu's modes
+LEX_LOOKUP, LEX_RANGE = 0, 1
+
+
+def lex_search(table: torch.Tensor, queries: torch.Tensor, n: int,
+               steps: int, mode: int, out0: torch.Tensor,
+               out1: torch.Tensor | None = None) -> None:
+    """Launch csrc/lex_search.cu on contiguous CUDA int64 tensors the
+    caller checked: table (cap, L), queries (M, L), `n` live rows and
+    `steps` search steps. LEX_LOOKUP writes each query's row or -1 to
+    out0; LEX_RANGE its padded-table lower and upper bounds to out0 and
+    out1."""
+    lib = library()
+    cap, L = table.shape
+    M = queries.shape[0]
+    with torch.cuda.device(queries.device):
+        rc = lib.platanus_lex_search(
+            table.data_ptr(), queries.data_ptr(), M, L, n, cap, steps, mode,
+            out0.data_ptr(), out1.data_ptr() if out1 is not None else None,
+            _stream(queries))
+    _check(rc, "lex_search")
+    LAUNCHES["lex_search"] += 1

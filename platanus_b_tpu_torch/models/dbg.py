@@ -19,6 +19,7 @@ import torch
 from ..ops.kmer import kmer_to_codes
 from ..ops.keys import (lanes_to_words, lex_le, num_words, revcomp_words,
                         shl2_words, words_to_lanes)
+from ..ops.rank import cycle_min_pair, doubling_rank
 from ..ops.search import lookup
 
 INVALID = -1
@@ -85,22 +86,6 @@ def _mask_topo_core(succ_idx, succ_orient, alive_new):
     return si, so, out, outdeg, is_junction
 
 
-def _doubling_rank(ptr, rank, anchor, iters: int):
-    """dbg.py:191: pointer-doubling list ranking, leaving the loop once
-    every pointer has died (one host sync per step); `iters` caps it.
-    Cycle members never die."""
-    m = ptr.shape[0]
-    for _ in range(iters):
-        has = ptr >= 0
-        if not bool(has.any()):
-            break
-        p = ptr.clamp(0, m - 1)
-        rank = torch.where(has, rank + rank[p], rank)
-        anchor = torch.where(has, anchor[p], anchor)
-        ptr = torch.where(has, ptr[p], ptr)
-    return ptr, rank, anchor
-
-
 @dataclass
 class Labels:
     """Device labeling (dbg.py:226 _label_core outputs), trimmed to num_u."""
@@ -115,15 +100,58 @@ class Labels:
     utail: torch.Tensor     # (U,) oriented id of the last k-mer
 
 
+def _per_unitig_sum(uid: torch.Tensor, values: torch.Tensor,
+                    num_u: int) -> torch.Tensor:
+    """(num_u,) int64 sums of `values` over the nodes of each unitig; a
+    node with no unitig adds into a dropped slot (no host sync)."""
+    slot = torch.where(uid >= 0, uid, num_u)
+    s = torch.zeros(num_u + 1, dtype=torch.int64, device=uid.device)
+    return s.index_add_(0, slot, values.to(torch.int64))[:num_u]
+
+
 def unitig_count_sums(uid: torch.Tensor, counts: torch.Tensor,
                       num_u: int) -> torch.Tensor:
     """Per-unitig sums of node counts as float32. Summed exactly in int64,
     then cast: equal to the JAX float32 scatter-add whenever that sum is
     exact (below 2^24)."""
-    sel = uid >= 0
-    s = torch.zeros(num_u, dtype=torch.int64, device=uid.device)
-    s.index_add_(0, uid[sel], counts[sel].to(torch.int64))
-    return s.to(torch.float32)
+    return _per_unitig_sum(uid, counts, num_u).to(torch.float32)
+
+
+def _rank_pass(nxt: torch.Tensor, iters: int):
+    """prv (the chain predecessor of each oriented id, by twin symmetry:
+    prv[j] = nxt[j ^ 1] ^ 1) and its pointer-doubling ranks: (prv, rank,
+    head, ptr_rem, stats) as ops/rank.py:doubling_rank gives them."""
+    arange = torch.arange(nxt.shape[0], device=nxt.device)
+    nt = nxt[arange ^ 1]
+    prv = torch.where(nt >= 0, nt ^ 1, INVALID)
+    rank0 = torch.where(prv >= 0, 1, 0)
+    anchor0 = torch.where(prv >= 0, prv, arange)
+    ptr_rem, rank, head, stats = doubling_rank(prv, rank0, anchor0, iters)
+    return prv, rank, head, ptr_rem, stats
+
+
+def _rank_chains(nxt: torch.Tensor, iters: int):
+    """dbg.py:240-298: ranks of the chain links nxt (oriented id 2i+o ->
+    the next one, or -1), with every junction-free cycle cut once. Returns
+    (prv, rank, head) after the cut. On the card the only host sync is the
+    read of the first pass's live flag."""
+    prv, rank, head, ptr_rem, stats = _rank_pass(nxt, iters)
+    if bool(stats[1]):
+        # mirror-consistent cycle cut (dbg.py:263-293): edge j -> nxt[j] and
+        # its strand mirror share the id pair {j, nxt[j]^1}; cutting the
+        # smallest pair of each cycle picks the same physical cut on both
+        # strands
+        m = nxt.shape[0]
+        arange = torch.arange(m, device=nxt.device)
+        in_cycle = ptr_rem >= 0
+        ea = torch.where(nxt >= 0, torch.minimum(arange, nxt ^ 1), m)
+        eb = torch.where(nxt >= 0, torch.maximum(arange, nxt ^ 1), m)
+        a, bb = cycle_min_pair(torch.where(in_cycle, prv, INVALID), ea, eb,
+                               iters)
+        cut_here = in_cycle & (ea == a) & (eb == bb)
+        nxt = torch.where(cut_here, INVALID, nxt)
+        prv, rank, head, _ptr, _stats = _rank_pass(nxt, iters)
+    return prv, rank, head
 
 
 def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
@@ -144,44 +172,14 @@ def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
         nxt_o.append(torch.where(src_ok & s_ok, 2 * s + p, INVALID))
     nxt = torch.stack(nxt_o, dim=1).reshape(-1)        # oriented id 2i+o
 
+    prv, rank, head = _rank_chains(nxt, iters)
     arange = torch.arange(m, device=dev)
     twin = arange ^ 1
-    nt = nxt[twin]
-    prv = torch.where(nt >= 0, nt ^ 1, INVALID)
-    rank0 = torch.where(prv >= 0, 1, 0)
-    anchor0 = torch.where(prv >= 0, prv, arange)
-    ptr_rem, rank, head = _doubling_rank(prv, rank0, anchor0, iters)
-
-    if bool((ptr_rem >= 0).any()):
-        # mirror-consistent cycle cut (dbg.py:263-293): edge j -> nxt[j] and
-        # its strand mirror share the id pair {j, nxt[j]^1}; cutting the
-        # smallest pair of each cycle picks the same physical cut on both
-        # strands
-        in_cycle = ptr_rem >= 0
-        ea = torch.where(nxt >= 0, torch.minimum(arange, nxt ^ 1), m)
-        eb = torch.where(nxt >= 0, torch.maximum(arange, nxt ^ 1), m)
-        ptr = torch.where(in_cycle, prv, INVALID)
-        a, bb = ea, eb
-        for _ in range(iters):
-            has = ptr >= 0
-            pp = ptr.clamp(0, m - 1)
-            ap, bp = a[pp], bb[pp]
-            better = has & ((ap < a) | ((ap == a) & (bp < bb)))
-            a = torch.where(better, ap, a)
-            bb = torch.where(better, bp, bb)
-            ptr = torch.where(has, ptr[pp], ptr)
-        cut_here = in_cycle & (ea == a) & (eb == bb)
-        nxt = torch.where(cut_here, INVALID, nxt)
-        nt2 = nxt[twin]
-        prv = torch.where(nt2 >= 0, nt2 ^ 1, INVALID)
-        r0 = torch.where(prv >= 0, 1, 0)
-        a0 = torch.where(prv >= 0, prv, arange)
-        _, rank, head = _doubling_rank(prv, r0, a0, iters)
     # chain tail via twin symmetry: tail = head[twin] ^ 1
     tail = head[twin] ^ 1
 
     node_alive_nonj = alive & ~is_junction
-    oriented_valid = node_alive_nonj.repeat_interleave(2)
+    oriented_valid = node_alive_nonj[:, None].expand(n, 2).reshape(-1)
     is_head = oriented_valid & (prv == INVALID)
     rep = is_head & (arange <= (tail ^ 1))
 
@@ -204,12 +202,14 @@ def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
     uorient = torch.where(use_e, orient_j[0::2], orient_j[1::2])
     uid = torch.where(node_alive_nonj, uid, INVALID)
 
-    sel = uid >= 0
-    ulen = torch.bincount(uid[sel], minlength=num_u)[:num_u]
+    # after num_u, nothing reads the card: masks become dropped slots
+    ulen = _per_unitig_sum(uid, torch.ones_like(uid), num_u)
     csum = unitig_count_sums(uid, counts, num_u)
     ucov = torch.floor(csum / torch.clamp(ulen, min=1).to(torch.float32)
                        + 0.5).to(torch.int64)
-    heads_idx = torch.nonzero(rep)[:, 0]
+    heads_idx = torch.empty(num_u + 1, dtype=torch.int64, device=dev)
+    heads_idx = heads_idx.scatter_(0, torch.where(rep, rep_i, num_u),
+                                   arange)[:num_u]
     utail = tail[heads_idx]
     return Labels(uid, upos, uorient, num_u, ulen, ucov, heads_idx, utail)
 

@@ -1,12 +1,19 @@
 """Bulk exact lookup in a sorted key table (counterpart of ops/search.py).
 
-One-lane keys (k <= 32) use ``torch.searchsorted``; keys of several lanes
-use a vectorised lexicographic binary search with a fixed number of steps
-(ceil(log2(n+1))), all queries advancing together.
+One-lane keys (k <= 32) use ``torch.searchsorted`` in ``lookup``; keys of
+several lanes use a lexicographic binary search with a fixed number of
+steps (ceil(log2(n+1))).
 
 ``lookup_range`` reproduces the JAX package's ``lookup_range_jit`` step
 for step (search.py:25-44,80-99), including its behaviour at the table's
 end, which the mapper's outputs depend on.
+
+``lookup_plain`` and ``lookup_range_plain`` are the plain versions (over
+``_bound`` and ``_bound_padded``), all queries advancing together one step
+at a time; a CPU tensor takes them. On a CUDA tensor ``lookup`` (keys of
+several lanes) and ``lookup_range`` (every key width) launch the
+hand-written kernel ``lex_search`` (csrc/lex_search.cu), one thread a
+query walking the whole search, or raise.
 """
 
 from __future__ import annotations
@@ -15,7 +22,12 @@ import math
 
 import torch
 
+from .. import kernels
 from .keys import SENTINEL_LANE, lex_le, lex_lt
+
+
+def _steps(rows: int) -> int:
+    return max(1, math.ceil(math.log2(rows + 1)))
 
 
 def _bound(table: torch.Tensor, queries: torch.Tensor, n: int,
@@ -27,7 +39,7 @@ def _bound(table: torch.Tensor, queries: torch.Tensor, n: int,
                                   queries[:, 0].contiguous(), right=upper)
     lo = torch.zeros(m, dtype=torch.int64, device=dev)
     hi = torch.full((m,), n, dtype=torch.int64, device=dev)
-    for _ in range(max(1, math.ceil(math.log2(n + 1)))):
+    for _ in range(_steps(n)):
         active = lo < hi
         mid = (lo + hi) >> 1
         rows = table[mid.clamp(0, n - 1)]
@@ -50,7 +62,7 @@ def _bound_padded(table: torch.Tensor, queries: torch.Tensor, n: int,
     # against a SENTINEL row: q <= SENTINEL always, q < SENTINEL unless q
     # is the all-ones key itself
     q_lt_sent = (queries != SENTINEL_LANE).any(dim=1)
-    for _ in range(max(1, math.ceil(math.log2(capacity + 1)))):
+    for _ in range(_steps(capacity)):
         mid = (lo + hi) >> 1
         row = mid.clamp(0, capacity - 1)
         past = row >= n
@@ -67,6 +79,20 @@ def _bound_padded(table: torch.Tensor, queries: torch.Tensor, n: int,
     return lo
 
 
+def _on_card(table: torch.Tensor, queries: torch.Tensor) -> bool:
+    """True for CUDA tensors (the kernel's), False for CPU ones; raises
+    for anything else."""
+    if table.device != queries.device:
+        raise ValueError("table and queries must share one device")
+    if table.dtype != torch.int64 or queries.dtype != torch.int64 \
+            or table.dim() != 2 or queries.dim() != 2 \
+            or table.shape[1] != queries.shape[1]:
+        raise ValueError("table (N, L) and queries (M, L) must be int64")
+    if queries.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {queries.device}")
+    return queries.device.type == "cuda"
+
+
 def lookup(table: torch.Tensor, queries: torch.Tensor,
            table_len: int | None = None) -> torch.Tensor:
     """Index of each query row in the sorted (N, L) table, or -1.
@@ -76,6 +102,17 @@ def lookup(table: torch.Tensor, queries: torch.Tensor,
     m = queries.shape[0]
     if n == 0 or m == 0:
         return torch.full((m,), -1, dtype=torch.int64, device=queries.device)
+    if _on_card(table, queries) and table.shape[1] > 1:
+        out = torch.empty(m, dtype=torch.int64, device=queries.device)
+        kernels.lex_search(table.contiguous(), queries.contiguous(), n,
+                           _steps(n), kernels.LEX_LOOKUP, out)
+        return out
+    return lookup_plain(table, queries, n)
+
+
+def lookup_plain(table: torch.Tensor, queries: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Plain version of lookup over the first n >= 1 rows."""
     pos = _bound(table, queries, n, upper=False)
     rows = table[pos.clamp(0, n - 1)]
     found = (pos < n) & (rows == queries).all(dim=1)
@@ -100,5 +137,17 @@ def lookup_range(table: torch.Tensor, queries: torch.Tensor,
         z = torch.zeros(queries.shape[0], dtype=torch.int64,
                         device=queries.device)
         return z, z.clone()
+    if _on_card(table, queries):
+        lo, hi = (torch.empty(queries.shape[0], dtype=torch.int64,
+                              device=queries.device) for _ in range(2))
+        kernels.lex_search(table.contiguous(), queries.contiguous(), n,
+                           _steps(cap), kernels.LEX_RANGE, lo, hi)
+        return lo, hi
+    return lookup_range_plain(table, queries, n)
+
+
+def lookup_range_plain(table: torch.Tensor, queries: torch.Tensor, n: int):
+    """Plain version of lookup_range over a table of at least one row."""
+    cap = table.shape[0]
     return (_bound_padded(table, queries, n, cap, upper=False),
             _bound_padded(table, queries, n, cap, upper=True))

@@ -27,7 +27,13 @@ numpy only, so the JAX package and the port can be fed identical files.
   ``twins`` all-equal slots and not-ok slots ahead of their ok twins);
 - ``chain_dp_inputs``: anchor groups for the chaining DP that are hard for
   a warp's reduction (exact ties between lookback offsets, duplicate
-  anchors, no ok link at all) beside indel-like groups.
+  anchors, no ok link at all) beside indel-like groups;
+- ``label_links``: the chain links of a unitig labeling, linear chains
+  with their strand mirrors and, at will, one junction-free cycle holding
+  a given share of the nodes, as a circular chromosome makes it;
+- ``search_inputs``: a sorted key table padded with SENTINEL rows and
+  queries that reach the search's edge cases (no live row, a full table,
+  duplicate runs, queries above the last row and equal to the SENTINEL).
 """
 
 from __future__ import annotations
@@ -299,3 +305,76 @@ def chain_dp_inputs(seed: int, B: int, cap: int, max_gap: int,
         order = np.lexsort((q, t))
         qs[b, :n], ts[b, :n], ns[b] = q[order], t[order], n
     return qs, ts, ns
+
+
+def label_links(seed: int, n_nodes: int, cycle_share: float = 0.0,
+                mean_chain: int = 40) -> np.ndarray:
+    """The chain links of a unitig labeling (models/dbg.py:_label_core's
+    nxt): (2 n_nodes,) int64 over oriented ids 2i+o, -1 for no link, each
+    link x -> y present with its strand mirror y^1 -> x^1. Nodes in random
+    order and orientation form linear chains of geometric lengths (mean
+    `mean_chain`; a tenth of the nodes stand alone, as junctions and dead
+    nodes do). With `cycle_share` > 0, one junction-free cycle holds that
+    share of the nodes first, so that its two strands hold that share of
+    the oriented ids, as a clean circular chromosome's do."""
+    rng = np.random.default_rng(seed)
+    nxt = np.full(2 * n_nodes, -1, np.int64)
+    order = rng.permutation(n_nodes).astype(np.int64)
+    orient = rng.integers(0, 2, size=n_nodes)
+
+    def link(u, v):
+        x, y = 2 * u + orient[u], 2 * v + orient[v]
+        nxt[x] = y
+        nxt[y ^ 1] = x ^ 1
+
+    c = int(round(cycle_share * n_nodes))
+    if c:
+        link(order[:c], np.roll(order[:c], -1))
+    rest = order[c:]
+    if len(rest) > 1:
+        joined = rng.random(len(rest) - 1) >= 1.0 / mean_chain
+        alone = rng.random(len(rest)) < 0.1
+        joined &= ~alone[:-1] & ~alone[1:]
+        link(rest[:-1][joined], rest[1:][joined])
+    return nxt
+
+
+def _key_words(rng, rows: int, W: int, alphabet: int) -> np.ndarray:
+    """(rows, W) uint32 words, each word one of `alphabet` values spread
+    over the range; the top word is halved, so no row is the SENTINEL."""
+    w = rng.integers(0, alphabet, size=(rows, W)).astype(np.uint64)
+    w = w * np.uint64((1 << 32) // alphabet)
+    w[:, 0] //= np.uint64(2)
+    return w.astype(np.uint32)
+
+
+def search_inputs(seed: int, W: int, case: str, cap: int = 64,
+                  n_random: int = 40):
+    """Inputs of ops/search.py in the JAX package's word form: (table (cap,
+    W) uint32, sorted, its rows from table_len on the all-ones SENTINEL;
+    table_len; queries (M, W) uint32). `case` sets the live rows: "n0"
+    none, "padded" 37/64 of cap, "full" all of cap (unique keys), "dups"
+    50/64 of cap drawn from 12 keys of three values a word. The queries
+    are every live row, `n_random` random keys, the SENTINEL twice, a key
+    above every row and the zero key."""
+    rng = np.random.default_rng(seed)
+    alphabet = 3 if case == "dups" else 1 << 16
+    rows = _key_words(rng, max(300, cap + cap // 2), W, alphabet)
+    rows = rows[np.lexsort(rows.T[::-1])]
+    if case == "dups":
+        n = cap * 50 // 64
+        picks = rows[np.linspace(0, len(rows) - 1, 12).astype(np.int64)]
+        table_rows = picks[np.sort(rng.integers(0, 12, size=n))]
+    else:
+        uniq = np.unique(rows, axis=0)
+        n = {"n0": 0, "padded": cap * 37 // 64, "full": cap}[case]
+        table_rows = uniq[np.sort(rng.choice(len(uniq), n, replace=False))]
+    table = np.full((cap, W), 0xFFFFFFFF, np.uint32)
+    table[:n] = table_rows
+    sentinel = np.full((1, W), 0xFFFFFFFF, np.uint32)
+    above = np.full((1, W), 0xFFFFFFFE, np.uint32)
+    queries = np.concatenate([table_rows, _key_words(rng, n_random, W,
+                                                     alphabet),
+                              sentinel, sentinel, above,
+                              np.zeros((1, W), np.uint32)])
+    return table, n, queries

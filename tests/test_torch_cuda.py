@@ -19,8 +19,12 @@ from platanus_b_tpu_torch.models import mapper as tmapper
 from platanus_b_tpu_torch.models import longread as tlongread
 from platanus_b_tpu_torch.ops import align as talign
 from platanus_b_tpu_torch.ops import chain as tchain
+from platanus_b_tpu_torch.ops import keys as tkeys
 from platanus_b_tpu_torch.ops import kmer as tkmer
-from platanus_b_tpu_torch.simulate import chain_dp_inputs, ungap_edge_inputs
+from platanus_b_tpu_torch.ops import rank as trank
+from platanus_b_tpu_torch.ops import search as tsearch
+from platanus_b_tpu_torch.simulate import (chain_dp_inputs, label_links,
+                                           search_inputs, ungap_edge_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +51,7 @@ def _mutate(rng, s, n_sub, n_ins, n_del):
 
 def test_kernels_build(dev):
     kernels.library()
-    assert len(kernels.BUILD_INFO["paths"]) == 4
+    assert len(kernels.BUILD_INFO["paths"]) == 6
     assert all(p.endswith(".so") for p in kernels.BUILD_INFO["paths"])
 
 
@@ -420,6 +424,239 @@ def test_chain_kernel_on_card_launches_k4(dev, monkeypatch):
         *(torch.from_numpy(x).to(dev) for x in (qs, ts, ns)))
     assert kernels.LAUNCHES["chain_dp"] == before + 1
     assert f.is_cuda and prev.is_cuda and tuple(f.shape) == (40, 256)
+
+
+def _rank_inputs(nxt: np.ndarray, dev):
+    """prv, rank0, anchor0 of links nxt, as models/dbg.py:_rank_pass
+    makes them, on `dev`."""
+    m = len(nxt)
+    nt = nxt[np.arange(m) ^ 1]
+    prv = np.where(nt >= 0, nt ^ 1, -1)
+    rank0 = np.where(prv >= 0, 1, 0)
+    anchor0 = np.where(prv >= 0, prv, np.arange(m))
+    return [torch.from_numpy(x.astype(np.int64)).to(dev)
+            for x in (prv, rank0, anchor0)]
+
+
+def _tree_ptr(m: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(m)
+    parent = np.where(rng.random(m) < 0.9,
+                      rng.integers(0, np.maximum(np.arange(m), 1)), -1)
+    parent[0] = -1
+    ptr = np.full(m, -1, np.int64)
+    ptr[perm] = np.where(parent >= 0, perm[np.maximum(parent, 0)], -1)
+    return ptr
+
+
+# (nodes, cycle share, mean chain, iters or None for the labeling's cap)
+RANK_CASES = {
+    "chains": (700, 0.0, 40, None),
+    "chains_capped": (700, 0.0, 200, 3),
+    "cycles": (600, 0.3, 40, None),
+    "one_long_cycle": (512, 1.0, 40, None),
+    "cap_even": (600, 0.3, 40, 4),
+    "all_dead": (128, 0.0, 1, None),
+    "single_node": (1, 0.0, 40, None),
+    "empty": (0, 0.0, 40, None),
+    "main_path_size": (1 << 21, 0.0, 300, None),
+    "main_path_half_cycle": (1 << 21, 0.5, 300, None),
+}
+
+
+def _labeling_iters(m: int) -> int:
+    import math
+
+    from platanus_b_tpu_torch.models.dbg import _next_pow2
+    return max(1, math.ceil(math.log2(max(_next_pow2(m // 2), 2))) + 1)
+
+
+@pytest.mark.parametrize("case", [*RANK_CASES, "trees", "trees_capped"])
+def test_list_rank_kernel_matches_plain(dev, case):
+    """K5's pointer doubling: ptr, rank and anchor bit for bit, with the
+    steps that did work and the live flag, cycles and binding caps
+    included."""
+    if case.startswith("trees"):
+        ptr = _tree_ptr(900, 15)
+        args = [torch.from_numpy(x).to(dev) for x in (
+            ptr, np.where(ptr >= 0, 1, 0), np.where(ptr >= 0, ptr,
+                                                    np.arange(900)))]
+        iters = 2 if case == "trees_capped" else _labeling_iters(900)
+    else:
+        nodes, share, mean, iters = RANK_CASES[case]
+        nxt = label_links(len(case), nodes, share, mean)
+        if case == "all_dead":
+            nxt[:] = -1
+        args = _rank_inputs(nxt, dev)
+        iters = iters or _labeling_iters(2 * nodes)
+    before = kernels.LAUNCHES["list_rank"]
+    got = trank.doubling_rank(*args, iters)
+    assert kernels.LAUNCHES["list_rank"] == before + 1
+    want = trank.doubling_rank_plain(*args, iters)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.is_cuda and torch.equal(g, w)
+    live = int((want[0] >= 0).any())
+    assert got[3].tolist() == [want[3], live]
+    if "cycle" in case or case.endswith("capped"):
+        assert live == 1 and want[3] == iters
+
+
+@pytest.mark.parametrize("iters", [1, 2, 5, 22])
+@pytest.mark.parametrize("nodes", [600, 1 << 21])
+def test_min_pair_kernel_matches_plain(dev, nodes, iters):
+    """K5's min-pair loop over the cycle cut's inputs, both parities of
+    iters: the pairs bit for bit."""
+    nxt = label_links(nodes + iters, nodes, 0.5, 300)
+    prv, rank0, anchor0 = _rank_inputs(nxt, dev)
+    ptr_rem = trank.doubling_rank_plain(prv, rank0, anchor0, 3)[0]
+    m = 2 * nodes
+    arange = torch.arange(m, device=dev)
+    t_nxt = torch.from_numpy(nxt).to(dev)
+    ea = torch.where(t_nxt >= 0, torch.minimum(arange, t_nxt ^ 1), m)
+    eb = torch.where(t_nxt >= 0, torch.maximum(arange, t_nxt ^ 1), m)
+    ptr = torch.where(ptr_rem >= 0, prv, -1)
+    before = kernels.LAUNCHES["list_rank"]
+    a, b = trank.cycle_min_pair(ptr, ea, eb, iters)
+    assert kernels.LAUNCHES["list_rank"] == before + 1
+    wa, wb = trank.cycle_min_pair_plain(ptr, ea, eb, iters)
+    assert torch.equal(a, wa) and torch.equal(b, wb)
+    assert not torch.equal(a, ea)       # the pairs moved
+
+
+def _search_tensors(seed, W, case, dev, cap=64, n_random=40):
+    table, n, queries = search_inputs(seed, W, case, cap, n_random)
+    return (tkeys.keys_from_words(table).to(dev),
+            tkeys.keys_from_words(queries).to(dev), n)
+
+
+@pytest.mark.parametrize("case", ["n0", "padded", "full", "dups"])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 6, 8, 10])
+def test_lex_search_kernel_matches_plain(dev, W, case):
+    """K6 in both modes against the plain versions on the same data: the
+    padded table's rules (bounds of table_len + 1, SENTINEL queries), no
+    live row, duplicate runs; 1-5 lanes (5 compares from memory)."""
+    tk, tq, n = _search_tensors(7 * W + len(case), W, case, dev)
+    before = kernels.LAUNCHES["lex_search"]
+    lo, hi = tsearch.lookup_range(tk, tq, n)
+    assert kernels.LAUNCHES["lex_search"] == before + 1
+    wlo, whi = tsearch.lookup_range_plain(tk, tq, n)
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+    if case == "dups" or n == 0:
+        return
+    want = tsearch.lookup_plain(tk, tq, n)
+    assert torch.equal(tsearch.lookup(tk, tq, n), want)
+    # the kernel's lookup mode at one lane too (lookup keeps
+    # torch.searchsorted there)
+    out = torch.empty(tq.shape[0], dtype=torch.int64, device=dev)
+    kernels.lex_search(tk, tq, n, tsearch._steps(n), kernels.LEX_LOOKUP, out)
+    assert torch.equal(out, want)
+    if case == "full":
+        assert int(hi[-2]) == n + 1
+
+
+@pytest.mark.parametrize("W", [3, 4])
+def test_lex_search_kernel_main_path_size(dev, W):
+    """A graph's node table of 2^21 rows and as many queries (half of them
+    present), and a padded index of the same capacity."""
+    tk, tq, n = _search_tensors(W, W, "full", dev, cap=1 << 21,
+                                n_random=1 << 20)
+    want = tsearch.lookup_plain(tk, tq, n)
+    assert torch.equal(tsearch.lookup(tk, tq, n), want)
+    tk, tq, n = _search_tensors(W + 1, W, "padded", dev, cap=1 << 21,
+                                n_random=1 << 20)
+    lo, hi = tsearch.lookup_range(tk, tq, n)
+    wlo, whi = tsearch.lookup_range_plain(tk, tq, n)
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+
+
+def test_failed_launches_raise(dev):
+    """A launch the C entry point refuses raises KernelError, never falls
+    back."""
+    x = torch.zeros(8, dtype=torch.int64, device=dev)
+    with pytest.raises(kernels.KernelError):
+        kernels.list_rank([x, x.clone(), x.clone()],
+                          [torch.empty_like(x) for _ in range(3)], 0,
+                          torch.empty(2, dtype=torch.int64, device=dev))
+    with pytest.raises(kernels.KernelError):
+        kernels.min_pair([x] * 3, [x] * 3, 0)
+    t = torch.zeros((4, 2), dtype=torch.int64, device=dev)
+    with pytest.raises(kernels.KernelError):
+        kernels.lex_search(t, t, 4, 0, kernels.LEX_LOOKUP,
+                           torch.empty(4, dtype=torch.int64, device=dev))
+
+
+def _circular_dbg(dev, k=33):
+    """The port's DBG on the card from error-free reads of a circular
+    genome and a linear one: junction-free cycles beside chains."""
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models.assemble_core import (count_reads_device,
+                                                           stage_reads)
+    from platanus_b_tpu_torch.models.dbg import DBG
+    rng = np.random.default_rng(33)
+    circle = simdata.random_genome(rng, 3000)
+    line = simdata.random_genome(rng, 2000)
+    src = circle + circle[:99]
+    reads = [src[i:i + 100] for i in range(len(src) - 99)]
+    reads += [line[i:i + 100] for i in range(0, len(line) - 99, 3)]
+    keys, counts, _n, _h = count_reads_device(stage_reads([pack_reads(reads)],
+                                                          dev), k)
+    return DBG(k, keys, counts)
+
+
+def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
+    """A labeling of a graph with cycles on the card: the adjacency's
+    lookups launch lex_search, the doubling passes and the min-pair loop
+    launch list_rank (3 launches) and no plain version runs; the labeling
+    reads the card exactly twice (the cycle flag and num_u), and equals
+    the CPU labeling of the same graph."""
+    import warnings
+
+    from platanus_b_tpu_torch.models import dbg as tdbg
+
+    g = _circular_dbg(dev)
+    cpu = tdbg.DBG(g.k, g.keys.cpu(), g.counts.cpu())
+    want = cpu.label_unitigs()
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    before = dict(kernels.LAUNCHES)
+    topo = g.topo
+    assert kernels.LAUNCHES["lex_search"] == before["lex_search"] + 8
+    monkeypatch.setattr(trank, "doubling_rank_plain", no_plain)
+    monkeypatch.setattr(trank, "cycle_min_pair_plain", no_plain)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            lab = tdbg._label_core(topo[0], topo[1], topo[3], topo[4],
+                                   g.alive, g.counts, 12)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 2, [str(w.message) for w in syncs]
+    assert kernels.LAUNCHES["list_rank"] == before["list_rank"] + 3
+    got = g.label_unitigs()
+    for f in ("uid", "upos", "uorient", "ulen", "ucov", "uhead", "utail"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert lab.num_u == want.num_unitigs == got.num_unitigs
+
+
+def test_search_wrappers_do_not_sync(dev):
+    """lookup (several lanes) and lookup_range on the card issue no host
+    sync."""
+    tk, tq, n = _search_tensors(5, 4, "padded", dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx = tsearch.lookup(tk, tq, n)
+        lo, hi = tsearch.lookup_range(tk, tq, n)
+        hit = tsearch.contains(tk, tq, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert idx.is_cuda and lo.is_cuda and hi.is_cuda and hit.is_cuda
 
 
 def test_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):
