@@ -28,19 +28,23 @@ Phases, one JSON line each; any failure exits non-zero:
    dataset (parity/run_parity.py:121 simulate(genome_bp, 125, 40, 0.003,
    123)); the sorted canonical contig set must hash to the value recorded
    in parity/PARITY_assemble_<genome_bp>.json, and kmer_extract,
-   list_rank and lex_search must have run. The run records the inputs of
-   its largest labeling's first doubling pass and of its largest lookups
-   (the graph's adjacency, keys of several lanes and of one lane); then,
-   in phase 2's format (the "graph_kernels" line, launches not counted),
-   list_rank against its plain version (ptr, rank, anchor, the steps that
-   did work and the live flag bit for bit) on that pass and on the two
-   passes and the min-pair loop of a synthetic labeling of the same size
-   whose one junction-free cycle holds half of the oriented ids
-   (simulate.label_links), each with the steps that did work and the
-   time a step; lex_search against its plain version on the adjacency's
-   lookup, and at one lane beside torch.searchsorted on the same data
-   (the library call lookup keeps there). Bounds count each input read
-   once and each output written once;
+   list_rank, lex_search and unitig_sum must have run. The run records the
+   inputs of its largest labeling's first doubling pass, of its largest
+   lookups (the graph's adjacency, keys of several lanes and of one lane)
+   and of its largest labeling's count sums; then, in phase 2's format
+   (the "graph_kernels" line, launches not counted), list_rank against its
+   plain version (ptr, rank, anchor, the steps that did work and the live
+   flag bit for bit) on that pass and on the two passes and the min-pair
+   loop of a synthetic labeling of the same size whose one junction-free
+   cycle holds half of the oriented ids (simulate.label_links), each with
+   the steps that did work and the time a step; lex_search through lookup
+   against its plain version on the adjacency's lookups of several lanes
+   and of one lane, the latter beside torch.searchsorted alone and with the
+   equality gather; unitig_sum against its plain version (numpy's float32
+   add.at) on the labeling's sums and on one unitig of 300,000 nodes whose
+   float32 sum passes 2^24 (LONG_UNITIG: ucov 80, the exact sum's 79),
+   beside index_add_ in float32. Bounds count each input read once and
+   each output written once;
 4. the bubble configuration: `assemble -u 0.1` on two haplotypes; the
    output files must hash to platanus_b_tpu_torch/smoke_expected.json
    (made by the JAX package on the CPU) and the edit_distance kernel must
@@ -53,7 +57,8 @@ Phases, one JSON line each; any failure exits non-zero:
    every output file must hash to smoke_expected.json, and kmer_extract,
    ungap_align and lex_search must have run; lex_search's range mode
    against its plain version on the largest lookup_range of polish (the
-   mapper's padded index; the "mapper_kernels" line); then the round once
+   mapper's padded index, beside two torch.searchsorted calls on its live
+   rows; the "mapper_kernels" line); then the round once
    more under torch.profiler for the card's busy share of each command;
 6. a whole `iterate -i 1` through the port's CLI (count, kmer_divide,
    solve_dbg -unphase, polish, gap_close, final divide, final polish) on
@@ -1203,10 +1208,10 @@ def check_list_rank(dev, main_call, label: str):
     from platanus_b_tpu_torch.models import dbg
     from platanus_b_tpu_torch.ops import rank
     from platanus_b_tpu_torch.simulate import label_links
-    m, iters = main_call[0].shape[0], main_call[3]
+    m, iters = main_call[0].shape[0], main_call[1]
     nxt = torch.from_numpy(label_links(5, m // 2, 0.5,
                                        LINK_MEAN_CHAIN)).to(dev)
-    with record_calls(dbg, "doubling_rank") as passes, \
+    with record_calls(dbg, "rank_from_prev") as passes, \
             record_calls(dbg, "cycle_min_pair") as pairs:
         dbg._rank_chains(nxt, iters)
     check(len(passes) == 2 and len(pairs) == 1,
@@ -1225,15 +1230,15 @@ def check_list_rank(dev, main_call, label: str):
             # ptr, a, b read once; a, b written once
             n_bytes, n_ops = 40 * m, 3 * iters * m
         else:
-            kernel = lambda args=args: rank.doubling_rank(*args)
-            plain = lambda args=args: rank.doubling_rank_plain(*args)
+            kernel = lambda args=args: rank.rank_from_prev(*args)
+            plain = lambda args=args: rank.rank_from_prev_plain(*args)
             got, want = kernel(), plain()
             steps = want[3]
             live = int((want[0] >= 0).any())
             same = (all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
                     and got[3].tolist() == [steps, live])
             rec["live_after"] = live
-            # ptr read once; ptr, rank, anchor written once; an add and a
+            # prv read once; ptr, rank, anchor written once; an add and a
             # compare an id a step
             n_bytes, n_ops = 32 * m, 2 * steps * m
         torch.cuda.synchronize()
@@ -1250,13 +1255,14 @@ def check_list_rank(dev, main_call, label: str):
 def check_lex_search(dev, sets):
     """lex_search against its plain version on recorded calls: `sets` is
     a list of (name, mode, args), mode "lookup" (the wrapper's lookup;
-    args table, queries), "lookup_l1" (the kernel's lookup mode at one
-    lane, which lookup leaves to torch.searchsorted, timed beside it) or
-    "range" (lookup_range; args table, queries, table_len). Outputs bit
-    for bit; the kernel timed over 20 calls, the plain version over 2."""
+    args table, queries) or "range" (lookup_range; args table, queries,
+    table_len). Outputs bit for bit; the kernel timed over 20 calls, the
+    plain version over 2. At one lane, beside them, the library calls:
+    lookup's torch.searchsorted alone and with the equality gather (the
+    plain version's whole function), lookup_range's two searchsorted calls
+    (left and right) on the live rows."""
     import torch
 
-    from platanus_b_tpu_torch import kernels
     from platanus_b_tpu_torch.ops import search
     results = []
     for name, mode, args in sets:
@@ -1266,25 +1272,25 @@ def check_lex_search(dev, sets):
         M, L = queries.shape
         rec = {"set": name, "mode": mode, "rows": n,
                "capacity": table.shape[0], "queries": M, "lanes": L}
-        library = None
+        library = {}
+        col = table[:n, 0].contiguous()
+        qcol = queries[:, 0].contiguous()
         if mode == "range":
             kernel = lambda: search.lookup_range(table, queries, n)
             plain = lambda: search.lookup_range_plain(table, queries, n)
             outs = 2
+            if L == 1:
+                library["searchsorted_left_right"] = lambda: (
+                    torch.searchsorted(col, qcol),
+                    torch.searchsorted(col, qcol, right=True))
         else:
             outs = 1
-            if mode == "lookup":
-                kernel = lambda: (search.lookup(table, queries),)
-            else:
-                def kernel():
-                    out = torch.empty(M, dtype=torch.int64, device=dev)
-                    kernels.lex_search(table, queries, n, search._steps(n),
-                                       kernels.LEX_LOOKUP, out)
-                    return (out,)
-                col = table[:n, 0].contiguous()
-                qcol = queries[:, 0].contiguous()
-                library = lambda: torch.searchsorted(col, qcol)
+            kernel = lambda: (search.lookup(table, queries, n),)
             plain = lambda: (search.lookup_plain(table, queries, n),)
+            if L == 1:
+                library["searchsorted"] = lambda: torch.searchsorted(col,
+                                                                     qcol)
+                library["searchsorted_gather"] = plain
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = _max_err(got, want)
@@ -1295,10 +1301,82 @@ def check_lex_search(dev, sets):
         # written once; a compare a lane a step
         rec.update(max_abs_err=err, steps=steps, ms=cuda_ms(kernel, reps=20),
                    plain_ms=cuda_ms(plain, reps=2),
-                   library_ms=cuda_ms(library, reps=20) if library else None,
+                   library_ms={key: cuda_ms(fn, reps=20)
+                               for key, fn in library.items()} or None,
                    found=int((want[0] >= 0).sum()) if outs == 1 else None,
                    **bound(8 * (L * (n + M) + outs * M),
                            outs * steps * L * M))
+        results.append(with_share(rec))
+    return results
+
+
+# K7: one unitig of 300,000 nodes with counts 60-99 summing to 23,849,980
+# (simulate.coverage_counts seed 0), whose float32 sum in node order gives
+# ucov 80 where the exact sum gives 79
+LONG_UNITIG = {"seed": 0, "nodes": 300_000, "lo": 60, "hi": 99,
+               "total": 23_849_980}
+
+
+def host_ms(fn, reps: int = 2) -> float:
+    """Host wall of one call of `fn`, which runs on the host alone."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def check_unitig_sum(dev, main_call, label: str):
+    """unitig_sum against its plain version (numpy's float32 add.at on the
+    host, from CPU copies made once): the count sums of the main path's
+    largest labeling (`main_call`, recorded in phase 3) and one unitig of
+    LONG_UNITIG's 300,000 nodes, bit for bit; the kernel timed over 20
+    calls, the plain version over 2 on the host clock, index_add_ in
+    float32 on the card (atomics in no fixed order: the same sum, not the
+    same rounding) as the library call. The bound counts uid and counts
+    read once and the sums written once; the long unitig's serial adds are
+    not in it."""
+    import torch
+
+    from platanus_b_tpu_torch.models import dbg
+    from platanus_b_tpu_torch.simulate import coverage_counts
+    lu = LONG_UNITIG
+    long_counts = torch.from_numpy(coverage_counts(
+        lu["seed"], lu["nodes"], lu["lo"], lu["hi"], lu["total"])).to(dev)
+    sets = [(label, main_call),
+            ("long_unitig_300k", (torch.zeros(lu["nodes"], dtype=torch.int64,
+                                              device=dev), long_counts, 1))]
+    results = []
+    for name, (uid, counts, num_u) in sets:
+        counts = counts.to(torch.int64)
+        uid_h, counts_h = uid.cpu(), counts.cpu()
+        kernel = lambda: dbg.unitig_count_sums(uid, counts, num_u)
+        plain = lambda: dbg.unitig_count_sums_plain(uid_h, counts_h, num_u)
+        slot = torch.where(uid >= 0, uid, num_u)
+        counts_f = counts.to(torch.float32)
+        library = lambda: torch.zeros(num_u + 1, device=dev).index_add_(
+            0, slot, counts_f)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max()) if num_u else 0.0
+        check(torch.equal(got.cpu(), want),
+              f"unitig_sum {name}: kernel != plain (max err {err})")
+        exact = dbg._per_unitig_sum(uid, counts, num_u)
+        n = uid.shape[0]
+        rec = {"set": name, "nodes": n, "unitigs": num_u,
+               "long_unitigs": int((exact > (1 << 24)).sum()),
+               "max_abs_err": err, "ms": cuda_ms(kernel, reps=20),
+               "plain_ms": host_ms(plain), "library_ms": cuda_ms(library,
+                                                                 reps=20),
+               **bound(16 * n + 4 * num_u, n)}
+        if name.startswith("long"):
+            ulen = float(n)
+            rec["ucov"] = int(torch.floor(got / ulen + 0.5)[0])
+            rec["ucov_exact_sum"] = int(torch.floor(
+                exact.to(torch.float32) / ulen + 0.5)[0])
+            check((rec["ucov"], rec["ucov_exact_sum"]) == (80, 79),
+                  f"unitig_sum {name}: ucov {rec['ucov']}, exact "
+                  f"{rec['ucov_exact_sum']} (want 80, 79)")
         results.append(with_share(rec))
     return results
 
@@ -1443,7 +1521,10 @@ def main() -> int:
                           "replaces": "platanus_b_tpu/models/dbg.py:191"},
             "lex_search": {"name": "lex_search", "route": "cuda",
                            "source": "platanus_b_tpu_torch/csrc/lex_search.cu",
-                           "replaces": "platanus_b_tpu/ops/search.py:26"}}
+                           "replaces": "platanus_b_tpu/ops/search.py:26"},
+            "unitig_sum": {"name": "unitig_sum", "route": "cuda",
+                           "source": "platanus_b_tpu_torch/csrc/unitig_sum.cu",
+                           "replaces": "platanus_b_tpu/models/dbg.py:338"}}
     PHASE["name"] = "kernels"
     rng = np.random.default_rng(2024)
     ed = check_edit_distance(dev, rng)
@@ -1476,8 +1557,10 @@ def main() -> int:
     reset_launches()
     prefix = os.path.join(work, f"out_{gbp}")
     steps: dict = {}
-    with record_calls(dbg_mod, "doubling_rank",
+    with record_calls(dbg_mod, "rank_from_prev",
                       lambda a: a[0].shape[0]) as rank_call, \
+            record_calls(dbg_mod, "unitig_count_sums",
+                         lambda a: a[0].shape[0]) as sum_call, \
             record_calls(dbg_mod, "lookup", lambda a: a[0].shape[0]
                          if a[0].shape[1] > 1 else -1) as adj_call, \
             record_calls(dbg_mod, "lookup", lambda a: a[0].shape[0]
@@ -1505,36 +1588,44 @@ def main() -> int:
         rec["error"] = f"no parity record {os.path.relpath(ref_path, REPO)}"
     emit(rec)
     check(rec["ok"], "contig set differs from the parity record")
-    for name in ("kmer_extract", "list_rank", "lex_search"):
+    for name in ("kmer_extract", "list_rank", "lex_search", "unitig_sum"):
         check(launches["main_path"][name] > 0, f"{name} never launched")
     main_wall, parity_sha = rec["wall_s"], rec["expected_sha256"]
 
     # K5 and K6 against their plain versions at phase 3's shapes (phase 2's
     # format; launches here do not count)
     PHASE["name"] = "graph_kernels"
-    check(rank_call and adj_call and l1_call,
-          "phase 3 recorded no labeling or lookup")
+    check(rank_call and adj_call and l1_call and sum_call,
+          "phase 3 recorded no labeling, lookup or count sums")
     lr = check_list_rank(dev, rank_call[0], f"labeling_{gbp}")
     lx = check_lex_search(dev, [("adjacency_lanes", "lookup", adj_call[0]),
-                                ("adjacency_k32_l1", "lookup_l1",
-                                 l1_call[0])])
-    del rank_call[:], adj_call[:], l1_call[:]
+                                ("adjacency_k32_l1", "lookup", l1_call[0])])
+    us = check_unitig_sum(dev, sum_call[0], f"labeling_{gbp}")
+    del rank_call[:], adj_call[:], l1_call[:], sum_call[:]
     emit({"phase": "graph_kernels", "ok": True, "list_rank": lr,
-          "lex_search": lx})
+          "lex_search": lx, "unitig_sum": us})
     # no single PyTorch call ranks a list; none searches keys of several
-    # lanes (the one-lane row holds torch.searchsorted's time)
+    # lanes (the one-lane row holds torch.searchsorted's times, alone and
+    # with the equality gather)
     kern["list_rank"].update(
         max_abs_err=max(r["max_abs_err"] for r in lr), library_ms=None,
         **{key: lr[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "roofline_share",
-                                       "steps_that_worked")},
+                                       "steps_that_worked", "ns_per_step")},
         timed_set=lr[0]["set"])
     kern["lex_search"].update(
         max_abs_err=max(r["max_abs_err"] for r in lx), library_ms=None,
         **{key: lx[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "roofline_share")},
         timed_set=lx[0]["set"], l1_ms=lx[1]["ms"],
-        l1_searchsorted_ms=lx[1]["library_ms"])
+        l1_library_ms=lx[1]["library_ms"])
+    kern["unitig_sum"].update(
+        max_abs_err=max(r["max_abs_err"] for r in us),
+        **{key: us[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "roofline_share",
+                                       "library_ms")},
+        timed_set=us[0]["set"], long_unitig_ms=us[1]["ms"],
+        long_unitig_plain_ms=us[1]["plain_ms"])
     torch.cuda.empty_cache()
 
     # ---- phase 4: the bubble configuration
@@ -1601,6 +1692,7 @@ def main() -> int:
     emit({"phase": "mapper_kernels", "ok": True, "lex_search": lm})
     kern["lex_search"].update(range_ms=lm[0]["ms"],
                               range_plain_ms=lm[0]["plain_ms"],
+                              range_library_ms=lm[0]["library_ms"],
                               max_abs_err=max(kern["lex_search"]["max_abs_err"],
                                               lm[0]["max_abs_err"]))
     PHASE["name"] = "round"

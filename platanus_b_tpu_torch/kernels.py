@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 LAUNCHES = {"edit_distance": 0, "kmer_extract": 0, "ungap_align": 0,
-            "chain_dp": 0, "list_rank": 0, "lex_search": 0}
+            "chain_dp": 0, "list_rank": 0, "lex_search": 0, "unitig_sum": 0}
 BUILD_INFO: dict = {}
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -51,12 +51,13 @@ _SIGNATURES = {
                                    _vp, _vp, _vp, _vp]),
     "platanus_chain_dp": (_ci, [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp,
                                 _vp, _vp, _vp]),
-    "platanus_list_rank": (_ci, [_vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci,
+    "platanus_list_rank": (_ci, [_vp, _vp, _vp, _cll, _ci, _vp, _vp, _vp,
                                  _vp, _vp, _vp]),
-    "platanus_min_pair": (_ci, [_vp, _vp, _vp, _vp, _vp, _vp, _cll, _ci,
-                                _vp]),
+    "platanus_min_pair": (_ci, [_vp, _vp, _vp, _vp, _vp, _cll, _ci, _vp,
+                                _vp, _vp]),
     "platanus_lex_search": (_ci, [_vp, _vp, _cll, _ci, _cll, _cll, _ci, _ci,
                                   _vp, _vp, _vp]),
+    "platanus_unitig_sum": (_ci, [_vp, _vp, _cll, _cll, _vp, _vp, _vp, _vp]),
 }
 
 _lib = None
@@ -223,36 +224,60 @@ def chain_dp(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor, H: int,
     LAUNCHES["chain_dp"] += 1
 
 
-def list_rank(bufs: list[torch.Tensor], scratch: list[torch.Tensor],
-              iters: int, stats: torch.Tensor) -> None:
+def list_rank(prv: torch.Tensor, iters: int, ptr: torch.Tensor,
+              rank: torch.Tensor, anchor: torch.Tensor,
+              stats: torch.Tensor) -> None:
     """Launch csrc/list_rank.cu's pointer doubling on CUDA tensors the
-    caller checked: bufs = [ptr, rank, anchor] (m,) int64, read as the
-    input and written with the result; scratch, three more of the same;
-    stats (2,) int64 receives the steps that did work and the live flag."""
+    caller checked: from the predecessor links prv (m,) int64 into ptr,
+    rank and anchor (m,) int64; stats (2,) int64 receives the steps that
+    did work and the live flag."""
     lib = library()
-    m = bufs[0].shape[0]
-    flags = torch.empty(iters + 2, dtype=torch.int32, device=stats.device)
-    with torch.cuda.device(stats.device):
+    m = prv.shape[0]
+    bufs = [torch.empty(m, dtype=torch.int64, device=prv.device)
+            for _ in range(2)]
+    flags = torch.empty(iters + 2, dtype=torch.int32, device=prv.device)
+    with torch.cuda.device(prv.device):
         rc = lib.platanus_list_rank(
-            *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in scratch),
-            m, iters, flags.data_ptr(), stats.data_ptr(), _stream(stats))
+            prv.data_ptr(), *(t.data_ptr() for t in bufs), m, iters,
+            flags.data_ptr(), ptr.data_ptr(), rank.data_ptr(),
+            anchor.data_ptr(), stats.data_ptr(), _stream(prv))
     _check(rc, "list_rank")
     LAUNCHES["list_rank"] += 1
 
 
-def min_pair(bufs: list[torch.Tensor], scratch: list[torch.Tensor],
-             iters: int) -> None:
+def min_pair(ptr: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             iters: int, a_out: torch.Tensor, b_out: torch.Tensor) -> None:
     """Launch csrc/list_rank.cu's min-pair propagation on CUDA tensors the
-    caller checked: bufs = [ptr, a, b] (m,) int64 and scratch alike; step
-    s reads bufs if s is even, else scratch, and writes the other."""
+    caller checked: ptr, a, b (m,) int64 in, a_out, b_out (m,) int64 out."""
     lib = library()
-    m = bufs[0].shape[0]
-    with torch.cuda.device(bufs[0].device):
+    m = ptr.shape[0]
+    bufs = [torch.empty((m, 2), dtype=torch.int64, device=ptr.device)
+            for _ in range(2)]
+    with torch.cuda.device(ptr.device):
         rc = lib.platanus_min_pair(
-            *(t.data_ptr() for t in bufs), *(t.data_ptr() for t in scratch),
-            m, iters, _stream(bufs[0]))
+            ptr.data_ptr(), a.data_ptr(), b.data_ptr(),
+            *(t.data_ptr() for t in bufs), m, iters, a_out.data_ptr(),
+            b_out.data_ptr(), _stream(ptr))
     _check(rc, "list_rank (min pair)")
     LAUNCHES["list_rank"] += 1
+
+
+def unitig_sum(uid: torch.Tensor, counts: torch.Tensor, num_u: int,
+               out: torch.Tensor) -> None:
+    """Launch csrc/unitig_sum.cu on contiguous CUDA tensors the caller
+    checked: uid and counts (n,) int64 in, out (num_u,) float32 receives
+    each unitig's sequential float32 sum of counts in node order."""
+    lib = library()
+    n = uid.shape[0]
+    # the key sums and the count of long unitigs; the long unitigs' ids
+    sums = torch.empty(num_u + 1, dtype=torch.int64, device=uid.device)
+    longs = torch.empty(max(num_u, 1), dtype=torch.int32, device=uid.device)
+    with torch.cuda.device(uid.device):
+        rc = lib.platanus_unitig_sum(
+            uid.data_ptr(), counts.data_ptr(), n, num_u, out.data_ptr(),
+            sums.data_ptr(), longs.data_ptr(), _stream(uid))
+    _check(rc, "unitig_sum")
+    LAUNCHES["unitig_sum"] += 1
 
 
 # csrc/lex_search.cu's modes
@@ -270,6 +295,8 @@ def lex_search(table: torch.Tensor, queries: torch.Tensor, n: int,
     lib = library()
     cap, L = table.shape
     M = queries.shape[0]
+    if table.data_ptr() % 16:
+        table = table.clone()       # the kernel loads rows 16 bytes at a time
     with torch.cuda.device(queries.device):
         rc = lib.platanus_lex_search(
             table.data_ptr(), queries.data_ptr(), M, L, n, cap, steps, mode,

@@ -16,10 +16,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops.kmer import kmer_to_codes
 from ..ops.keys import (lanes_to_words, lex_le, num_words, revcomp_words,
                         shl2_words, words_to_lanes)
-from ..ops.rank import cycle_min_pair, doubling_rank
+from ..ops.rank import cycle_min_pair, rank_from_prev
 from ..ops.search import lookup
 
 INVALID = -1
@@ -109,24 +110,44 @@ def _per_unitig_sum(uid: torch.Tensor, values: torch.Tensor,
     return s.index_add_(0, slot, values.to(torch.int64))[:num_u]
 
 
+def unitig_count_sums_plain(uid: torch.Tensor, counts: torch.Tensor,
+                            num_u: int) -> torch.Tensor:
+    """Plain version of unitig_count_sums on CPU tensors: numpy's unbuffered
+    float32 add.at, one node at a time in id order, as XLA's CPU backend
+    runs the reference's scatter-add."""
+    slot = torch.where(uid >= 0, uid, num_u).numpy()
+    s = np.zeros(num_u + 1, np.float32)
+    np.add.at(s, slot, counts.numpy().astype(np.float32))
+    return torch.from_numpy(s[:num_u])
+
+
 def unitig_count_sums(uid: torch.Tensor, counts: torch.Tensor,
                       num_u: int) -> torch.Tensor:
-    """Per-unitig sums of node counts as float32. Summed exactly in int64,
-    then cast: equal to the JAX float32 scatter-add whenever that sum is
-    exact (below 2^24)."""
-    return _per_unitig_sum(uid, counts, num_u).to(torch.float32)
+    """dbg.py:338-340 and clean.py:512-514: per-unitig float32 sums of node
+    counts, each the sequential float32 sum in node-id order that the
+    reference's scatter-add gives (above 2^24 it differs from the exact
+    sum). A CUDA tensor launches csrc/unitig_sum.cu (K7), with no host
+    sync; a CPU tensor takes the plain version."""
+    counts = counts.to(torch.int64)
+    if uid.device != counts.device:
+        raise ValueError("uid and counts must share one device")
+    if uid.device.type == "cpu":
+        return unitig_count_sums_plain(uid, counts, num_u)
+    if uid.device.type != "cuda":
+        raise ValueError(f"unsupported device {uid.device}")
+    out = torch.empty(num_u, dtype=torch.float32, device=uid.device)
+    kernels.unitig_sum(uid.contiguous(), counts.contiguous(), num_u, out)
+    return out
 
 
 def _rank_pass(nxt: torch.Tensor, iters: int):
     """prv (the chain predecessor of each oriented id, by twin symmetry:
     prv[j] = nxt[j ^ 1] ^ 1) and its pointer-doubling ranks: (prv, rank,
-    head, ptr_rem, stats) as ops/rank.py:doubling_rank gives them."""
+    head, ptr_rem, stats) as ops/rank.py:rank_from_prev gives them."""
     arange = torch.arange(nxt.shape[0], device=nxt.device)
     nt = nxt[arange ^ 1]
     prv = torch.where(nt >= 0, nt ^ 1, INVALID)
-    rank0 = torch.where(prv >= 0, 1, 0)
-    anchor0 = torch.where(prv >= 0, prv, arange)
-    ptr_rem, rank, head, stats = doubling_rank(prv, rank0, anchor0, iters)
+    ptr_rem, rank, head, stats = rank_from_prev(prv, iters)
     return prv, rank, head, ptr_rem, stats
 
 

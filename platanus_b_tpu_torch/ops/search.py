@@ -1,8 +1,8 @@
 """Bulk exact lookup in a sorted key table (counterpart of ops/search.py).
 
-One-lane keys (k <= 32) use ``torch.searchsorted`` in ``lookup``; keys of
-several lanes use a lexicographic binary search with a fixed number of
-steps (ceil(log2(n+1))).
+``lookup`` is a lexicographic binary search with a fixed number of steps
+(ceil(log2(n+1))); its plain version searches one-lane keys (k <= 32)
+with ``torch.searchsorted``.
 
 ``lookup_range`` reproduces the JAX package's ``lookup_range_jit`` step
 for step (search.py:25-44,80-99), including its behaviour at the table's
@@ -10,10 +10,9 @@ end, which the mapper's outputs depend on.
 
 ``lookup_plain`` and ``lookup_range_plain`` are the plain versions (over
 ``_bound`` and ``_bound_padded``), all queries advancing together one step
-at a time; a CPU tensor takes them. On a CUDA tensor ``lookup`` (keys of
-several lanes) and ``lookup_range`` (every key width) launch the
-hand-written kernel ``lex_search`` (csrc/lex_search.cu), one thread a
-query walking the whole search, or raise.
+at a time; a CPU tensor takes them. On a CUDA tensor ``lookup`` and
+``lookup_range`` launch the hand-written kernel ``lex_search``
+(csrc/lex_search.cu) at every key width, one lane included, or raise.
 """
 
 from __future__ import annotations
@@ -102,7 +101,7 @@ def lookup(table: torch.Tensor, queries: torch.Tensor,
     m = queries.shape[0]
     if n == 0 or m == 0:
         return torch.full((m,), -1, dtype=torch.int64, device=queries.device)
-    if _on_card(table, queries) and table.shape[1] > 1:
+    if _on_card(table, queries):
         out = torch.empty(m, dtype=torch.int64, device=queries.device)
         kernels.lex_search(table.contiguous(), queries.contiguous(), n,
                            _steps(n), kernels.LEX_LOOKUP, out)

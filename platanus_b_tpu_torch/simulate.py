@@ -339,6 +339,25 @@ def label_links(seed: int, n_nodes: int, cycle_share: float = 0.0,
     return nxt
 
 
+def coverage_counts(seed: int, n: int, lo: int, hi: int,
+                    total: int | None = None) -> np.ndarray:
+    """(n,) int64 node counts drawn uniformly from [lo, hi]. With `total`,
+    the first counts are moved towards it, each as far as [lo, hi] lets
+    it, until the counts sum to `total` (the per-unitig sums above 2^24
+    that models/dbg.py:unitig_count_sums must round as float32 does)."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(lo, hi + 1, size=n).astype(np.int64)
+    if total is not None:
+        d = int(total) - int(c.sum())
+        room = (hi - c) if d > 0 else (c - lo)
+        before = np.cumsum(room) - room
+        c += np.sign(d) * np.minimum(room, np.maximum(abs(d) - before, 0))
+        if int(c.sum()) != total:
+            raise ValueError(f"{n} counts in [{lo}, {hi}] cannot sum to "
+                             f"{total}")
+    return c
+
+
 def _key_words(rng, rows: int, W: int, alphabet: int) -> np.ndarray:
     """(rows, W) uint32 words, each word one of `alphabet` values spread
     over the range; the top word is halved, so no row is the SENTINEL."""

@@ -23,8 +23,9 @@ from platanus_b_tpu_torch.ops import keys as tkeys
 from platanus_b_tpu_torch.ops import kmer as tkmer
 from platanus_b_tpu_torch.ops import rank as trank
 from platanus_b_tpu_torch.ops import search as tsearch
-from platanus_b_tpu_torch.simulate import (chain_dp_inputs, label_links,
-                                           search_inputs, ungap_edge_inputs)
+from platanus_b_tpu_torch.simulate import (chain_dp_inputs, coverage_counts,
+                                           label_links, search_inputs,
+                                           ungap_edge_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -51,7 +52,7 @@ def _mutate(rng, s, n_sub, n_ins, n_del):
 
 def test_kernels_build(dev):
     kernels.library()
-    assert len(kernels.BUILD_INFO["paths"]) == 6
+    assert len(kernels.BUILD_INFO["paths"]) == 7
     assert all(p.endswith(".so") for p in kernels.BUILD_INFO["paths"])
 
 
@@ -426,16 +427,11 @@ def test_chain_kernel_on_card_launches_k4(dev, monkeypatch):
     assert f.is_cuda and prev.is_cuda and tuple(f.shape) == (40, 256)
 
 
-def _rank_inputs(nxt: np.ndarray, dev):
-    """prv, rank0, anchor0 of links nxt, as models/dbg.py:_rank_pass
+def _prv(nxt: np.ndarray, dev):
+    """The predecessor links of links nxt, as models/dbg.py:_rank_pass
     makes them, on `dev`."""
-    m = len(nxt)
-    nt = nxt[np.arange(m) ^ 1]
-    prv = np.where(nt >= 0, nt ^ 1, -1)
-    rank0 = np.where(prv >= 0, 1, 0)
-    anchor0 = np.where(prv >= 0, prv, np.arange(m))
-    return [torch.from_numpy(x.astype(np.int64)).to(dev)
-            for x in (prv, rank0, anchor0)]
+    nt = nxt[np.arange(len(nxt)) ^ 1]
+    return torch.from_numpy(np.where(nt >= 0, nt ^ 1, -1)).to(dev)
 
 
 def _tree_ptr(m: int, seed: int) -> np.ndarray:
@@ -449,7 +445,8 @@ def _tree_ptr(m: int, seed: int) -> np.ndarray:
     return ptr
 
 
-# (nodes, cycle share, mean chain, iters or None for the labeling's cap)
+# (nodes, cycle share, mean chain, iters or None for the labeling's cap);
+# 1 << 22 nodes: two buffers of 8.4 M records (134 MB) pass the 50 MB L2
 RANK_CASES = {
     "chains": (700, 0.0, 40, None),
     "chains_capped": (700, 0.0, 200, 3),
@@ -461,6 +458,9 @@ RANK_CASES = {
     "empty": (0, 0.0, 40, None),
     "main_path_size": (1 << 21, 0.0, 300, None),
     "main_path_half_cycle": (1 << 21, 0.5, 300, None),
+    "beyond_l2": (1 << 22, 0.3, 300, None),
+    "beyond_l2_capped": (1 << 22, 0.0, 5000, 5),
+    "beyond_l2_all_dead": (1 << 22, 0.0, 1, None),
 }
 
 
@@ -473,42 +473,41 @@ def _labeling_iters(m: int) -> int:
 
 @pytest.mark.parametrize("case", [*RANK_CASES, "trees", "trees_capped"])
 def test_list_rank_kernel_matches_plain(dev, case):
-    """K5's pointer doubling: ptr, rank and anchor bit for bit, with the
-    steps that did work and the live flag, cycles and binding caps
-    included."""
+    """K5's pointer doubling from the links alone: ptr, rank and anchor
+    bit for bit, with the steps that did work and the live flag, cycles,
+    binding caps and buffers beyond L2 included."""
     if case.startswith("trees"):
-        ptr = _tree_ptr(900, 15)
-        args = [torch.from_numpy(x).to(dev) for x in (
-            ptr, np.where(ptr >= 0, 1, 0), np.where(ptr >= 0, ptr,
-                                                    np.arange(900)))]
+        prv = torch.from_numpy(_tree_ptr(900, 15)).to(dev)
         iters = 2 if case == "trees_capped" else _labeling_iters(900)
     else:
         nodes, share, mean, iters = RANK_CASES[case]
         nxt = label_links(len(case), nodes, share, mean)
-        if case == "all_dead":
+        if case.endswith("all_dead"):
             nxt[:] = -1
-        args = _rank_inputs(nxt, dev)
+        prv = _prv(nxt, dev)
         iters = iters or _labeling_iters(2 * nodes)
     before = kernels.LAUNCHES["list_rank"]
-    got = trank.doubling_rank(*args, iters)
+    got = trank.rank_from_prev(prv, iters)
     assert kernels.LAUNCHES["list_rank"] == before + 1
-    want = trank.doubling_rank_plain(*args, iters)
+    want = trank.rank_from_prev_plain(prv, iters)
     for g, w in zip(got[:3], want[:3]):
         assert g.is_cuda and torch.equal(g, w)
     live = int((want[0] >= 0).any())
     assert got[3].tolist() == [want[3], live]
     if "cycle" in case or case.endswith("capped"):
         assert live == 1 and want[3] == iters
+    if case.endswith("all_dead"):
+        assert got[3].tolist() == [0, 0]
 
 
 @pytest.mark.parametrize("iters", [1, 2, 5, 22])
-@pytest.mark.parametrize("nodes", [600, 1 << 21])
+@pytest.mark.parametrize("nodes", [600, 1 << 21, 1 << 22])
 def test_min_pair_kernel_matches_plain(dev, nodes, iters):
     """K5's min-pair loop over the cycle cut's inputs, both parities of
-    iters: the pairs bit for bit."""
+    iters, buffers within and beyond L2: the pairs bit for bit."""
     nxt = label_links(nodes + iters, nodes, 0.5, 300)
-    prv, rank0, anchor0 = _rank_inputs(nxt, dev)
-    ptr_rem = trank.doubling_rank_plain(prv, rank0, anchor0, 3)[0]
+    prv = _prv(nxt, dev)
+    ptr_rem = trank.rank_from_prev_plain(prv, 3)[0]
     m = 2 * nodes
     arange = torch.arange(m, device=dev)
     t_nxt = torch.from_numpy(nxt).to(dev)
@@ -523,6 +522,37 @@ def test_min_pair_kernel_matches_plain(dev, nodes, iters):
     assert not torch.equal(a, ea)       # the pairs moved
 
 
+def test_min_pair_kernel_all_dead(dev):
+    """No live pointer: every pair stays, at both parities of iters."""
+    m = 1 << 23
+    ptr = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    a = torch.randint(0, m, (m,), device=dev)
+    b = torch.randint(0, m, (m,), device=dev)
+    for iters in (1, 4, 7):
+        got = trank.cycle_min_pair(ptr, a, b, iters)
+        assert torch.equal(got[0], a) and torch.equal(got[1], b)
+
+
+def test_list_rank_guards_raise(dev):
+    """The card's 32-bit records: 2^30 ids or more than 30 steps raise
+    before any launch, and the C entry points refuse them too."""
+    big = torch.zeros(1, dtype=torch.int64, device=dev).expand(1 << 30)
+    small = torch.full((8,), -1, dtype=torch.int64, device=dev)
+    before = kernels.LAUNCHES["list_rank"]
+    for args in ((big, 4), (small, 31)):
+        with pytest.raises(ValueError):
+            trank.rank_from_prev(*args)
+        with pytest.raises(ValueError):
+            trank.cycle_min_pair(args[0], args[0], args[0], args[1])
+    assert kernels.LAUNCHES["list_rank"] == before
+    out = [torch.empty_like(small) for _ in range(3)]
+    with pytest.raises(kernels.KernelError):
+        kernels.list_rank(small, 31, *out, torch.empty(2, dtype=torch.int64,
+                                                       device=dev))
+    with pytest.raises(kernels.KernelError):
+        kernels.min_pair(small, small, small, 31, out[0], out[1])
+
+
 def _search_tensors(seed, W, case, dev, cap=64, n_random=40):
     table, n, queries = search_inputs(seed, W, case, cap, n_random)
     return (tkeys.keys_from_words(table).to(dev),
@@ -533,8 +563,10 @@ def _search_tensors(seed, W, case, dev, cap=64, n_random=40):
 @pytest.mark.parametrize("W", [1, 2, 3, 4, 6, 8, 10])
 def test_lex_search_kernel_matches_plain(dev, W, case):
     """K6 in both modes against the plain versions on the same data: the
-    padded table's rules (bounds of table_len + 1, SENTINEL queries), no
-    live row, duplicate runs; 1-5 lanes (5 compares from memory)."""
+    padded table's rules (bounds of table_len + 1, SENTINEL queries,
+    queries above the last row), no live row, duplicate runs; 1-5 lanes
+    (5 compares from memory); every search inside the shared-memory
+    tree (n below its size)."""
     tk, tq, n = _search_tensors(7 * W + len(case), W, case, dev)
     before = kernels.LAUNCHES["lex_search"]
     lo, hi = tsearch.lookup_range(tk, tq, n)
@@ -544,20 +576,59 @@ def test_lex_search_kernel_matches_plain(dev, W, case):
     if case == "dups" or n == 0:
         return
     want = tsearch.lookup_plain(tk, tq, n)
+    before = kernels.LAUNCHES["lex_search"]
     assert torch.equal(tsearch.lookup(tk, tq, n), want)
-    # the kernel's lookup mode at one lane too (lookup keeps
-    # torch.searchsorted there)
-    out = torch.empty(tq.shape[0], dtype=torch.int64, device=dev)
-    kernels.lex_search(tk, tq, n, tsearch._steps(n), kernels.LEX_LOOKUP, out)
-    assert torch.equal(out, want)
+    assert kernels.LAUNCHES["lex_search"] == before + 1
     if case == "full":
         assert int(hi[-2]) == n + 1
+        # a table view whose rows start off 16 bytes (one lane) is copied
+        assert torch.equal(tsearch.lookup(tk[1:], tq, n - 1),
+                           tsearch.lookup_plain(tk[1:], tq, n - 1))
 
 
-@pytest.mark.parametrize("W", [3, 4])
+@pytest.mark.parametrize("cap", [2047, 2049, 4095, 4097, 9000])
+@pytest.mark.parametrize("case", ["padded", "full", "dups"])
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 10])
+def test_lex_search_kernel_tree_edges(dev, W, case, cap):
+    """Tables just below and above the shared-memory tree's rows (4095 at
+    one lane, 2047 at two, 1023 at four, 511 at five): searches that end
+    in the tree and searches that leave it, in both modes."""
+    tk, tq, n = _search_tensors(W * cap + len(case), W, case, dev, cap=cap,
+                                n_random=3000)
+    lo, hi = tsearch.lookup_range(tk, tq, n)
+    wlo, whi = tsearch.lookup_range_plain(tk, tq, n)
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+    if case != "dups":
+        for rows in (n, n - 1, (n + 1) // 2):
+            want = tsearch.lookup_plain(tk, tq, rows)
+            assert torch.equal(tsearch.lookup(tk, tq, rows), want)
+
+
+def test_lex_search_one_lane_lookup_launches_k6(dev, monkeypatch):
+    """On the card a one-lane lookup (k <= 32: the adjacency, the
+    k-extension filters, kmer_divide, the sharded layer) launches K6 and
+    never the plain searchsorted route."""
+    tk, tq, n = _search_tensors(77, 2, "padded", dev, cap=1 << 16,
+                                n_random=5000)
+    assert tk.shape[1] == 1
+    want = tsearch.lookup_plain(tk, tq, n)
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("lookup_plain called on the card")
+
+    monkeypatch.setattr(tsearch, "lookup_plain", no_plain)
+    before = kernels.LAUNCHES["lex_search"]
+    got = tsearch.lookup(tk, tq, n)
+    hit = tsearch.contains(tk, tq, n)
+    assert kernels.LAUNCHES["lex_search"] == before + 2
+    assert torch.equal(got, want) and torch.equal(hit, want >= 0)
+
+
+@pytest.mark.parametrize("W", [2, 3, 4, 6, 8, 10])
 def test_lex_search_kernel_main_path_size(dev, W):
     """A graph's node table of 2^21 rows and as many queries (half of them
-    present), and a padded index of the same capacity."""
+    present), and a padded index of the same capacity, at 1-5 lanes (one
+    lane from two words: one word has too few distinct keys)."""
     tk, tq, n = _search_tensors(W, W, "full", dev, cap=1 << 21,
                                 n_random=1 << 20)
     want = tsearch.lookup_plain(tk, tq, n)
@@ -573,12 +644,14 @@ def test_failed_launches_raise(dev):
     """A launch the C entry point refuses raises KernelError, never falls
     back."""
     x = torch.zeros(8, dtype=torch.int64, device=dev)
+    out = [torch.empty_like(x) for _ in range(3)]
     with pytest.raises(kernels.KernelError):
-        kernels.list_rank([x, x.clone(), x.clone()],
-                          [torch.empty_like(x) for _ in range(3)], 0,
-                          torch.empty(2, dtype=torch.int64, device=dev))
+        kernels.list_rank(x, 0, *out, torch.empty(2, dtype=torch.int64,
+                                                  device=dev))
     with pytest.raises(kernels.KernelError):
-        kernels.min_pair([x] * 3, [x] * 3, 0)
+        kernels.min_pair(x, x, x, 0, out[0], out[1])
+    with pytest.raises(kernels.KernelError):
+        kernels.unitig_sum(x, x, -1, torch.empty(1, device=dev))
     t = torch.zeros((4, 2), dtype=torch.int64, device=dev)
     with pytest.raises(kernels.KernelError):
         kernels.lex_search(t, t, 4, 0, kernels.LEX_LOOKUP,
@@ -606,9 +679,10 @@ def _circular_dbg(dev, k=33):
 def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
     """A labeling of a graph with cycles on the card: the adjacency's
     lookups launch lex_search, the doubling passes and the min-pair loop
-    launch list_rank (3 launches) and no plain version runs; the labeling
-    reads the card exactly twice (the cycle flag and num_u), and equals
-    the CPU labeling of the same graph."""
+    launch list_rank (3 launches), the count sums unitig_sum (1), and no
+    plain version runs; the labeling reads the card exactly twice (the
+    cycle flag and num_u), and equals the CPU labeling of the same
+    graph."""
     import warnings
 
     from platanus_b_tpu_torch.models import dbg as tdbg
@@ -624,7 +698,9 @@ def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
     topo = g.topo
     assert kernels.LAUNCHES["lex_search"] == before["lex_search"] + 8
     monkeypatch.setattr(trank, "doubling_rank_plain", no_plain)
+    monkeypatch.setattr(trank, "rank_from_prev_plain", no_plain)
     monkeypatch.setattr(trank, "cycle_min_pair_plain", no_plain)
+    monkeypatch.setattr(tdbg, "unitig_count_sums_plain", no_plain)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -638,6 +714,7 @@ def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 2, [str(w.message) for w in syncs]
     assert kernels.LAUNCHES["list_rank"] == before["list_rank"] + 3
+    assert kernels.LAUNCHES["unitig_sum"] == before["unitig_sum"] + 1
     got = g.label_unitigs()
     for f in ("uid", "upos", "uorient", "ulen", "ucov", "uhead", "utail"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
@@ -645,18 +722,105 @@ def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
 
 
 def test_search_wrappers_do_not_sync(dev):
-    """lookup (several lanes) and lookup_range on the card issue no host
-    sync."""
+    """lookup (one lane and several), lookup_range and unitig_count_sums
+    on the card issue no host sync."""
+    from platanus_b_tpu_torch.models import dbg as tdbg
     tk, tq, n = _search_tensors(5, 4, "padded", dev)
+    t1, q1, n1 = _search_tensors(5, 1, "padded", dev)
+    uid = torch.randint(-1, 50, (5000,), device=dev)
+    counts = torch.randint(0, 65_535, (5000,), device=dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         idx = tsearch.lookup(tk, tq, n)
+        idx1 = tsearch.lookup(t1, q1, n1)
         lo, hi = tsearch.lookup_range(tk, tq, n)
         hit = tsearch.contains(tk, tq, n)
+        csum = tdbg.unitig_count_sums(uid, counts, 50)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert idx.is_cuda and lo.is_cuda and hi.is_cuda and hit.is_cuda
+    assert all(x.is_cuda for x in (idx, idx1, lo, hi, hit, csum))
+
+
+# K7: (uid, counts, num_u) of each case; "long_300k" is one unitig of
+# 300,000 nodes with counts 60-99 summing to 23,849,980 (exact mean
+# 79.49993, the float32 sum's mean 79.5002: ucov 80, the exact 79)
+def _unitig_sum_case(case: str, dev):
+    rng = np.random.default_rng(len(case))
+    if case == "one_unitig_400":
+        counts = coverage_counts(39, 400, 50_000, 65_534, 23_040_995)
+        uid, num_u = np.zeros(400, np.int64), 1
+    elif case == "long_300k":
+        counts = coverage_counts(0, 300_000, 60, 99, 23_849_980)
+        uid, num_u = np.zeros(300_000, np.int64), 1
+    elif case == "interleaved_long":
+        n, num_u = 1 << 20, 6000
+        uid = rng.integers(-1, num_u, size=n)
+        many = rng.random(n) < 0.5            # unitigs 0-2: long
+        uid[many] = rng.integers(0, 3, size=int(many.sum()))
+        uid[rng.random(n) < 0.1] = 7
+        counts = rng.integers(0, 65_535, size=n)
+    elif case == "main_path_short":
+        n, num_u = 1 << 21, 60_000
+        uid = rng.integers(-1, num_u, size=n)
+        counts = rng.integers(0, 300, size=n)
+    elif case == "odd_counts":
+        n, num_u = 5000, 4
+        uid = rng.integers(-1, num_u, size=n)
+        counts = rng.integers(-5, 1 << 26, size=n)
+    elif case == "no_nodes":
+        uid, counts, num_u = np.zeros(0, np.int64), np.zeros(0, np.int64), 3
+    else:
+        raise KeyError(case)
+    return (torch.from_numpy(uid.astype(np.int64)).to(dev),
+            torch.from_numpy(counts.astype(np.int64)).to(dev), num_u)
+
+
+@pytest.mark.parametrize("case", ["one_unitig_400", "long_300k",
+                                  "interleaved_long", "main_path_short",
+                                  "odd_counts", "no_nodes"])
+def test_unitig_sum_kernel_matches_plain(dev, case):
+    """K7 against the sequential float32 sum of the plain version, bit for
+    bit: unitigs above 2^24 (one long one alone, several interleaved with
+    thousands of short ones), counts outside [0, 2^24], no node."""
+    from platanus_b_tpu_torch.models import dbg as tdbg
+    uid, counts, num_u = _unitig_sum_case(case, dev)
+    before = kernels.LAUNCHES["unitig_sum"]
+    got = tdbg.unitig_count_sums(uid, counts, num_u)
+    assert kernels.LAUNCHES["unitig_sum"] == before + 1
+    want = tdbg.unitig_count_sums_plain(uid.cpu(), counts.cpu(), num_u)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+    if case in ("one_unitig_400", "long_300k"):
+        ulen = uid.shape[0]
+        ucov = int(torch.floor(got / ulen + 0.5)[0])
+        exact = int(torch.floor(counts.sum().to(torch.float32) / ulen + 0.5))
+        assert (ucov, exact) == ((57603, 57602) if ulen == 400 else (80, 79))
+
+
+def test_unitig_sums_on_card_match_cpu(dev):
+    """The 400-node unitig of a random 430 bp genome at k 31, counts
+    summing to 23,040,995: the card's labeling and _chain_pull give the
+    CPU's ucov (57603) and sums."""
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models import clean as tclean
+    from platanus_b_tpu_torch.models.assemble_core import (count_reads_device,
+                                                           stage_reads)
+    from platanus_b_tpu_torch.models.dbg import DBG
+    g = simdata.random_genome(np.random.default_rng(11), 430)
+    reads = [g[i:i + 100] for i in range(len(g) - 99)]
+    keys, _c, n, _h = count_reads_device(stage_reads([pack_reads(reads)],
+                                                     dev), 31)
+    assert int(n) == 400
+    counts = torch.from_numpy(coverage_counts(39, 400, 50_000, 65_534,
+                                              23_040_995))
+    card = DBG(31, keys, counts.to(dev))
+    cpu = DBG(31, keys.cpu(), counts)
+    got, want = card.label_unitigs(), cpu.label_unitigs()
+    assert got.num_unitigs == want.num_unitigs == 1
+    assert got.ucov.tolist() == want.ucov.tolist() == [57603]
+    assert torch.equal(tclean._chain_pull(card)[0].cpu(),
+                       tclean._chain_pull(cpu)[0])
 
 
 def test_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):

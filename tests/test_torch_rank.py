@@ -4,17 +4,23 @@ package, exactly.
 
 - doubling_rank_plain against models/dbg.py:_doubling_rank on seeded
   forests of chains, trees and cycles, with an `iters` cap that binds and
-  one that does not, all-dead input and one long cycle;
+  one that does not, all-dead input and one long cycle, and the wrapper
+  rank_from_prev from the same links;
 - the port's _label_core against the JAX package's on graphs with
   junction-free cycles (which run cycle_min_pair_plain), at the default
   cap and at one that binds;
+- the per-unitig float32 count sums (unitig_count_sums, the labeling's
+  ucov and _chain_pull's csum) against _label_core and
+  clean._chain_pull_kernel where they pass 2^24: one 400-node unitig, two
+  interleaved unitigs, and a graph below 2^24 where the exact int64 sum
+  agrees; the plain version against a float32 loop on random unitigs;
 - lookup, contains and lookup_range against _lookup_jit and
   lookup_range_jit at 1-4 lanes (1-8 words), with no live row, a full
   table, duplicate runs, queries above the last row and queries equal to
   the SENTINEL.
 
 On the CPU the wrappers take the plain versions and never build the
-kernels (list_rank and lex_search run only on the card,
+kernels (list_rank, lex_search and unitig_sum run only on the card,
 tests/test_torch_cuda.py).
 """
 
@@ -27,15 +33,18 @@ import torch
 
 import simdata
 from platanus_b_tpu.io.reads import pack_reads
+from platanus_b_tpu.models import clean as jclean
 from platanus_b_tpu.models import dbg as jdbg
 from platanus_b_tpu.ops import count as jcnt
 from platanus_b_tpu.ops import search as jsearch
 from platanus_b_tpu_torch import interop, kernels
+from platanus_b_tpu_torch.models import clean as tclean
 from platanus_b_tpu_torch.models import dbg as tdbg
 from platanus_b_tpu_torch.ops import keys as tkeys
 from platanus_b_tpu_torch.ops import rank as trank
 from platanus_b_tpu_torch.ops import search as tsearch
-from platanus_b_tpu_torch.simulate import label_links, search_inputs
+from platanus_b_tpu_torch.simulate import (coverage_counts, label_links,
+                                           search_inputs)
 
 
 def _default_iters(m: int) -> int:
@@ -108,8 +117,9 @@ def test_doubling_rank_plain_matches_reference(case):
     for got, want in ((tp, jp), (tr, jr), (ta, ja)):
         assert (got.numpy() == np.asarray(want)).all()
     assert steps == _numpy_steps(ptr, iters)
-    # the dispatching wrapper on CPU tensors: the same, with its stats
-    wp, wr, wa, stats = trank.doubling_rank(*args, iters)
+    # the dispatching wrapper on CPU tensors, from the links alone: the
+    # same, with its stats
+    wp, wr, wa, stats = trank.rank_from_prev(args[0], iters)
     assert torch.equal(wp, tp) and torch.equal(wr, tr) and torch.equal(wa, ta)
     assert stats.tolist() == [steps, int((tp >= 0).any())]
     if case in ("cycles", "one_long_cycle", "chains_capped"):
@@ -193,6 +203,95 @@ def test_cycle_min_pair_plain_steps():
     assert a2.tolist() == [2, 2, 2, 2, 0] and b2.tolist() == [4, 4, 4, 4, 0]
 
 
+EXACT = 1 << 24
+
+
+def _sum_graph(case):
+    """(k, keys, counts) of a node table whose unitigs' count sums pass
+    2^24 (or, "below", do not). "one_unitig": a random 430 bp genome at
+    k 31, one unitig of 400 nodes with counts of 50,000-65,534 summing to
+    23,040,995 (exact mean 57602.49; the reference's float32 sum gives
+    ucov 57603). "two_interleaved": two 330 bp genomes, two unitigs of 300
+    nodes each above 2^24 whose node ids interleave. "below": the two
+    genomes with counts of 1-1000."""
+    rng = np.random.default_rng(11)
+    if case == "one_unitig":
+        genomes = [simdata.random_genome(rng, 430)]
+    else:
+        genomes = [simdata.random_genome(rng, 330) for _ in range(2)]
+    k = 31
+    reads = [g[i:i + 100] for g in genomes for i in range(len(g) - 99)]
+    keys, counts, n = jcnt.count_batch(pack_reads(reads).codes, k)
+    keys_h, _counts = jcnt.compact_host(keys, counts, n)
+    n = len(keys_h)
+    if case == "one_unitig":
+        counts = coverage_counts(39, n, 50_000, 65_534, 23_040_995)
+    elif case == "two_interleaved":
+        counts = coverage_counts(3, n, 56_000, 65_534)
+    else:
+        counts = coverage_counts(4, n, 1, 1000)
+    return k, keys_h, counts.astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["one_unitig", "two_interleaved", "below"])
+def test_unitig_count_sums_match_reference(case):
+    """ulen, ucov and _chain_pull's csum equal the JAX package's, whose
+    float32 scatter-adds round once a unitig's sum passes 2^24."""
+    k, keys_h, counts = _sum_graph(case)
+    j = jdbg.DBG(k, keys_h, counts)
+    t = interop.dbg_from_arrays(k, keys_h, counts)
+    iters = max(1, math.ceil(math.log2(max(j.capacity, 2))) + 1)
+    si, so, _out, od, isj = j.topo
+    juid, _up, _uo, jnum, julen, jucov, jhead, jtail = (
+        np.asarray(x) for x in jdbg._label_kernel(si, so, od, isj, j.alive,
+                                                  j.counts, iters=iters))
+    jcsum = np.asarray(jclean._chain_pull_kernel(
+        si, so, od, isj, j.counts, juid, jhead, jtail)[0])
+    num_u = int(jnum)
+    tsi, tso, _tout, tod, tisj = t.topo
+    lab = tdbg._label_core(tsi, tso, tod, tisj, t.alive, t.counts, iters)
+    assert lab.num_u == num_u == (1 if case == "one_unitig" else 2)
+    assert (lab.uid.numpy() == juid[:t.n]).all()
+    assert (lab.ulen.numpy() == julen[:num_u]).all()
+    assert (lab.ucov.numpy() == jucov[:num_u]).all()
+    csum = tclean._chain_pull(t)[0]
+    assert csum.dtype == torch.float32
+    assert (csum.numpy() == jcsum[:num_u]).all()
+    exact = tdbg._per_unitig_sum(lab.uid, t.counts, num_u)
+    if case == "one_unitig":
+        assert int(lab.ulen[0]) == 400 and int(exact[0]) == 23_040_995
+        assert int(lab.ucov[0]) == 57603       # the exact mean rounds to 57602
+    elif case == "two_interleaved":
+        assert (exact > EXACT).all()
+        ids = lab.uid.numpy()
+        assert (np.diff(ids[ids >= 0]) != 0).sum() > 10   # interleaved
+        assert (csum.double() != exact.double()).any()
+    else:
+        assert (exact < EXACT).all()
+        assert torch.equal(csum, exact.to(torch.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_unitig_count_sums_plain_is_sequential_float32(seed):
+    """The plain version equals a float32 sum taken one node at a time in
+    id order, for interleaved unitigs above and below 2^24, nodes of no
+    unitig, and a unitig with no node."""
+    rng = np.random.default_rng(seed)
+    n, num_u = 3000, 5
+    uid = rng.integers(-1, num_u - 1, size=n)     # unitig num_u - 1 empty
+    counts = rng.integers(0, 65_535, size=n)
+    want = np.zeros(num_u, np.float32)
+    for u, c in zip(uid, counts):
+        if u >= 0:
+            want[u] = np.float32(want[u] + np.float32(c))
+    got = tdbg.unitig_count_sums(torch.from_numpy(uid),
+                                 torch.from_numpy(counts), num_u)
+    assert got.dtype == torch.float32 and (got.numpy() == want).all()
+    exact = tdbg._per_unitig_sum(torch.from_numpy(uid),
+                                 torch.from_numpy(counts), num_u)
+    assert (exact[:num_u - 1] > EXACT).all() and int(exact[-1]) == 0
+
+
 @pytest.mark.parametrize("case", ["n0", "padded", "full", "dups"])
 @pytest.mark.parametrize("W", [1, 2, 3, 4, 6, 8])
 def test_search_matches_reference(W, case):
@@ -223,9 +322,12 @@ def test_search_matches_reference(W, case):
 def test_cpu_path_builds_no_kernel():
     """The CPU runs above never built or launched the card's kernels."""
     ptr = torch.tensor([-1, 0, 1])
-    trank.doubling_rank(ptr, (ptr >= 0).long(), torch.tensor([0, 0, 1]), 2)
+    trank.rank_from_prev(ptr, 2)
+    tdbg.unitig_count_sums(torch.tensor([0, -1, 0]), torch.tensor([1, 2, 3]),
+                           1)
     tsearch.lookup_range(torch.zeros((4, 2), dtype=torch.int64),
                          torch.zeros((3, 2), dtype=torch.int64), 2)
     assert kernels._lib is None
     assert kernels.LAUNCHES["list_rank"] == 0
     assert kernels.LAUNCHES["lex_search"] == 0
+    assert kernels.LAUNCHES["unitig_sum"] == 0
