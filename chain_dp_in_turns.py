@@ -18,27 +18,12 @@ non-zero without a card, on a failed build or on unequal results.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import chip_smoke as cs
-
-REPO = os.path.dirname(os.path.abspath(__file__))
-
-
-def build(name: str, src: str, out_dir: str):
-    """`src` built with the port's flags; its platanus_chain_dp bound."""
-    from platanus_b_tpu_torch import kernels
-    so = os.path.join(out_dir, f"lib{name}.so")
-    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src],
-                         capture_output=True, text=True)
-    cs.check(res.returncode == 0, f"nvcc {src}: {res.stdout}{res.stderr}")
-    fn = ctypes.CDLL(so).platanus_chain_dp
-    fn.restype, fn.argtypes = kernels._SIGNATURES["platanus_chain_dp"]
-    return fn
+import in_turns as it
 
 
 def launch(fn, q, t, n, H, max_gap, kk, table):
@@ -54,18 +39,17 @@ def launch(fn, q, t, n, H, max_gap, kk, table):
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
-        cs.fail("usage: chain_dp_in_turns.py OLD_chain_dp.cu")
+    it.require_card("chain_dp_in_turns.py OLD_chain_dp.cu",
+                    len(sys.argv) == 2)
     import torch
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: needs a CUDA card")
+
     from platanus_b_tpu_torch.ops import chain
     from platanus_b_tpu_torch.simulate import chain_dp_inputs
-    out_dir = os.path.join(REPO, "platanus_b_tpu_torch", "build", "in_turns")
-    os.makedirs(out_dir, exist_ok=True)
-    fns = {"old": build("chain_dp_old", os.path.abspath(sys.argv[1]), out_dir),
-           "new": build("chain_dp_new", os.path.join(
-               REPO, "platanus_b_tpu_torch", "csrc", "chain_dp.cu"), out_dir)}
+    libs = it.build_all([
+        ("chain_dp_old", os.path.abspath(sys.argv[1]), []),
+        ("chain_dp_new", os.path.join(it.CSRC, "chain_dp.cu"), [])])
+    fns = {k: it.bind(libs[f"chain_dp_{k}"], "platanus_chain_dp")
+           for k in ("old", "new")}
     dev = torch.device("cuda")
     for name, cap, B, H, max_gap, kk in cs.CHAIN_SHAPES:
         qs, ts, ns = chain_dp_inputs(cap, B, cap, max_gap, edges=False)
@@ -76,9 +60,7 @@ def main() -> int:
         (of, op), (nf, np_) = runs["old"](), runs["new"]()
         cs.check(torch.equal(of.view(torch.int32), nf.view(torch.int32))
                  and torch.equal(op, np_), f"{name}: old != new")
-        ms = {"old": [], "new": []}
-        for k in ("old", "new", "new", "old"):
-            ms[k].append(cs.cuda_ms(runs[k], reps=20 if cap <= 8192 else 5))
+        ms = it.in_turns(runs, reps=20 if cap <= 8192 else 5)
         steps = int(ns.max()) - 1
         print(json.dumps({
             "set": name, "groups": B, "longest_group_steps": steps, "ms": ms,

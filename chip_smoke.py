@@ -41,10 +41,15 @@ Phases, one JSON line each; any failure exits non-zero:
    against its plain version on the adjacency's lookups of several lanes
    and of one lane, the latter beside torch.searchsorted alone and with the
    equality gather; unitig_sum against its plain version (numpy's float32
-   add.at) on the labeling's sums and on one unitig of 300,000 nodes whose
-   float32 sum passes 2^24 (LONG_UNITIG: ucov 80, the exact sum's 79),
-   beside index_add_ in float32. Bounds count each input read once and
-   each output written once;
+   add.at; ulen against the exact node counts) on the labeling's sums, on
+   one unitig of 300,000 nodes whose float32 sum passes 2^24 (LONG_UNITIG:
+   ucov 80, the exact sum's 79), on 12 such unitigs of 250-450 k nodes
+   shuffled among the labeling's 5,754,499 nodes of 64,267 unitigs at
+   4.6 Mbp (MANY_LONG, a stress case) and on the shape of the one call
+   with such unitigs that `assemble` makes at 4.6 Mbp and 100x (two of
+   612-694 k nodes among 22 unitigs, FINAL_100X), beside index_add_ in
+   float32, the long sets with their walk's steps and replays. Bounds
+   count each input read once and each output written once;
 4. the bubble configuration: `assemble -u 0.1` on two haplotypes; the
    output files must hash to platanus_b_tpu_torch/smoke_expected.json
    (made by the JAX package on the CPU) and the edit_distance kernel must
@@ -216,8 +221,8 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = next((k for k in ("edit_distance", "kmer_extract",
-                                     "ungap_align", "chain_dp") if k in ln),
-                        "other")
+                                     "ungap_align", "chain_dp", "unitig_sum")
+                         if k in ln), "other")
         elif name and "Used" in ln and "registers" in ln:
             words = ln.replace(",", " ").split()
             regs = int(words[words.index("registers") - 1])
@@ -1315,6 +1320,31 @@ def check_lex_search(dev, sets):
 # ucov 80 where the exact sum gives 79
 LONG_UNITIG = {"seed": 0, "nodes": 300_000, "lo": 60, "hi": 99,
                "total": 23_849_980}
+# K7's long path under stress, at phase 3's 4.6 Mbp labeling shape:
+# 5,754,499 nodes, 64,267 unitigs, 12 of them of 250-450 k nodes (counts
+# 60-99, sums above 2^24), the node ids shuffled so that every unitig
+# spreads over the whole array (simulate.interleaved_unitigs). No run
+# has shown so many: see FINAL_100X.
+MANY_LONG = {"seed": 12, "nodes": 5_754_499, "unitigs": 64_267, "long": 12,
+             "long_lo": 250_000, "long_hi": 450_000, "lo": 60, "hi": 99}
+# K7's long path as runs give it: of the 27 K7 calls of `assemble -k 32`
+# on this script's reads at 4.6 Mbp and 100x, only the final rebuild's
+# labeling has unitigs past 2^24 (none at 40x; unitig_sum_in_turns.py's
+# survey): 4,599,887 nodes in 22 unitigs, two of them of 694,221 and
+# 612,372 nodes, whose nodes' counts run 24-37 (1st-99th percentile
+# 27-31, mean 29.07). Here: the two lengths drawn from that range, the
+# other 20 unitigs sharing the rest, ids shuffled, counts 27-31.
+FINAL_100X = {"seed": 100, "nodes": 4_599_887, "unitigs": 22, "long": 2,
+              "long_lo": 612_372, "long_hi": 694_221, "lo": 27, "hi": 31}
+# K7's walk: a step (up to 32 chunks) waits on k for the select of the
+# composed increment by k's parity, the add, the binade test, the ballot
+# and the shuffle of the new k, at 4 cycles each at least (the warp scan
+# that composes the chunks does not wait on k); the parent's design
+# (22515a4) added each value after the tile of 4,096 ids where the exact
+# sum passed 2^24 with one __fadd_rn (4 cycles) on one thread
+UNITIG_WALK_CYCLES_PER_STEP = 5 * 4
+UNITIG_ADD_CYCLES = 4
+PARENT_TILE = 4096
 
 
 def host_ms(fn, reps: int = 2) -> float:
@@ -1326,54 +1356,108 @@ def host_ms(fn, reps: int = 2) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
+def parent_serial_adds(uid_h: np.ndarray, counts_h: np.ndarray,
+                       long_ids) -> int:
+    """The longest chain of one-at-a-time float adds in the parent's K7
+    (one block a long unitig, in parallel): the values of a long unitig
+    from the first tile of PARENT_TILE ids where its exact sum would pass
+    2^24."""
+    most = 0
+    for u in long_ids:
+        ids = np.flatnonzero(uid_h == u)
+        first = ids[np.argmax(np.cumsum(counts_h[ids]) > (1 << 24))]
+        tile_start = (first // PARENT_TILE) * PARENT_TILE
+        most = max(most, int((ids >= tile_start).sum()))
+    return most
+
+
 def check_unitig_sum(dev, main_call, label: str):
     """unitig_sum against its plain version (numpy's float32 add.at on the
     host, from CPU copies made once): the count sums of the main path's
-    largest labeling (`main_call`, recorded in phase 3) and one unitig of
-    LONG_UNITIG's 300,000 nodes, bit for bit; the kernel timed over 20
-    calls, the plain version over 2 on the host clock, index_add_ in
-    float32 on the card (atomics in no fixed order: the same sum, not the
-    same rounding) as the library call. The bound counts uid and counts
-    read once and the sums written once; the long unitig's serial adds are
-    not in it."""
+    largest labeling (`main_call`, recorded in phase 3, ulen included),
+    LONG_UNITIG, MANY_LONG and FINAL_100X, the sums bit for bit and ulen
+    against the exact node counts; the kernel timed over 20 calls, the
+    plain version over 2 on the host clock, index_add_ in float32 on the
+    card (atomics in no fixed order: the same sum, not the same rounding)
+    as the library call. The bound counts uid and counts read once and the
+    sums and ulen written once. A long set also reports its walk from the kernel's stats
+    (long unitigs, chunks, chunks replayed, the longest walk's steps) and
+    two estimates, modelled and not measured, which stay off the kernels
+    line: the walk's serial bound, the longest walk's steps times
+    UNITIG_WALK_CYCLES_PER_STEP over the SM clock nvidia-smi reads while
+    the kernel runs, and beside it the parent design's serial chain
+    (parent_serial_adds times UNITIG_ADD_CYCLES over the same clock)."""
     import torch
 
+    from platanus_b_tpu_torch import kernels
     from platanus_b_tpu_torch.models import dbg
-    from platanus_b_tpu_torch.simulate import coverage_counts
+    from platanus_b_tpu_torch.simulate import (coverage_counts,
+                                               interleaved_unitigs)
     lu = LONG_UNITIG
     long_counts = torch.from_numpy(coverage_counts(
         lu["seed"], lu["nodes"], lu["lo"], lu["hi"], lu["total"])).to(dev)
-    sets = [(label, main_call),
+
+    def interleaved(cfg):
+        uid, counts = interleaved_unitigs(
+            cfg["seed"], cfg["nodes"], cfg["unitigs"], cfg["long"],
+            cfg["long_lo"], cfg["long_hi"], cfg["lo"], cfg["hi"])
+        return (torch.from_numpy(uid).to(dev),
+                torch.from_numpy(counts).to(dev), cfg["unitigs"])
+
+    sets = [(label, main_call[:3]),
             ("long_unitig_300k", (torch.zeros(lu["nodes"], dtype=torch.int64,
-                                              device=dev), long_counts, 1))]
+                                              device=dev), long_counts, 1)),
+            ("many_long", interleaved(MANY_LONG)),
+            ("final_100x", interleaved(FINAL_100X))]
     results = []
     for name, (uid, counts, num_u) in sets:
         counts = counts.to(torch.int64)
         uid_h, counts_h = uid.cpu(), counts.cpu()
-        kernel = lambda: dbg.unitig_count_sums(uid, counts, num_u)
+        kernel = lambda: dbg.unitig_count_sums(uid, counts, num_u, True)
         plain = lambda: dbg.unitig_count_sums_plain(uid_h, counts_h, num_u)
         slot = torch.where(uid >= 0, uid, num_u)
         counts_f = counts.to(torch.float32)
         library = lambda: torch.zeros(num_u + 1, device=dev).index_add_(
             0, slot, counts_f)
-        got, want = kernel(), plain()
+        (got, ulen), want = kernel(), plain()
         torch.cuda.synchronize()
         err = float((got.cpu() - want).abs().max()) if num_u else 0.0
         check(torch.equal(got.cpu(), want),
               f"unitig_sum {name}: kernel != plain (max err {err})")
+        check(torch.equal(ulen, dbg._per_unitig_sum(
+                  uid, torch.ones_like(uid), num_u)),
+              f"unitig_sum {name}: ulen != the node counts")
         exact = dbg._per_unitig_sum(uid, counts, num_u)
         n = uid.shape[0]
         rec = {"set": name, "nodes": n, "unitigs": num_u,
-               "long_unitigs": int((exact > (1 << 24)).sum()),
+               "long_unitigs": int((exact >= (1 << 24)).sum()),
                "max_abs_err": err, "ms": cuda_ms(kernel, reps=20),
                "plain_ms": host_ms(plain), "library_ms": cuda_ms(library,
                                                                  reps=20),
-               **bound(16 * n + 4 * num_u, n)}
+               **bound(16 * n + 12 * num_u, n)}
+        if rec["long_unitigs"]:
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            kernels.unitig_sum(uid, counts, num_u, torch.empty_like(got),
+                               None, stats)
+            n_long, chunks, replays, steps = stats.tolist()
+            check(n_long == rec["long_unitigs"],
+                  f"unitig_sum {name}: {n_long} long unitigs walked")
+            mhz = sm_clock_mhz(kernel, rec["ms"])
+            serial = parent_serial_adds(
+                uid_h.numpy(), counts_h.numpy(),
+                np.flatnonzero(exact.cpu().numpy() > (1 << 24)))
+            rec.update(chunks=chunks, chunks_replayed=replays,
+                       walk_steps=steps, sm_clock_mhz=mhz,
+                       walk_bound_estimate_ms=steps
+                       * UNITIG_WALK_CYCLES_PER_STEP / (1e3 * mhz),
+                       parent_serial_adds=serial,
+                       parent_serial_estimate_ms=serial * UNITIG_ADD_CYCLES
+                       / (1e3 * mhz))
         if name.startswith("long"):
-            ulen = float(n)
-            rec["ucov"] = int(torch.floor(got / ulen + 0.5)[0])
+            ulen_f = float(n)
+            rec["ucov"] = int(torch.floor(got / ulen_f + 0.5)[0])
             rec["ucov_exact_sum"] = int(torch.floor(
-                exact.to(torch.float32) / ulen + 0.5)[0])
+                exact.to(torch.float32) / ulen_f + 0.5)[0])
             check((rec["ucov"], rec["ucov_exact_sum"]) == (80, 79),
                   f"unitig_sum {name}: ucov {rec['ucov']}, exact "
                   f"{rec['ucov_exact_sum']} (want 80, 79)")
@@ -1624,8 +1708,12 @@ def main() -> int:
         **{key: us[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "roofline_share",
                                        "library_ms")},
-        timed_set=us[0]["set"], long_unitig_ms=us[1]["ms"],
-        long_unitig_plain_ms=us[1]["plain_ms"])
+        timed_set=us[0]["set"],
+        **{f"{key}_{field}": rec[field]
+           for key, rec in (("long_unitig", us[1]), ("many_long", us[2]),
+                            ("final_100x", us[3]))
+           for field in ("ms", "plain_ms", "library_ms", "walk_steps",
+                         "chunks_replayed")})
     torch.cuda.empty_cache()
 
     # ---- phase 4: the bubble configuration

@@ -26,15 +26,13 @@ card, on a failed build or on unequal results.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import chip_smoke as cs
+import in_turns as it
 
-REPO = os.path.dirname(os.path.abspath(__file__))
 # (name, -D flags)
 VARIANTS = [("tree0_q1", ["-DLEX_TREE_BYTES=0", "-DLEX_QUERIES=1"]),
             ("tree0_q4", ["-DLEX_TREE_BYTES=0", "-DLEX_QUERIES=4"]),
@@ -46,26 +44,6 @@ VARIANTS = [("tree0_q1", ["-DLEX_TREE_BYTES=0", "-DLEX_QUERIES=1"]),
 ADJACENCY_K = {"adjacency_k63": 63, "adjacency_k32_l1": 32}
 # live rows, capacity, lanes, queries
 SYNTHETIC_RANGE = (1_020_169, 1 << 20, 1, 2_402_400)
-
-
-def build_all(sources: list[tuple[str, str, list[str]]], out_dir: str):
-    """Each (name, source, flags) built at once; its platanus_lex_search
-    bound."""
-    from platanus_b_tpu_torch import kernels
-    procs = []
-    for name, src, flags in sources:
-        so = os.path.join(out_dir, f"lib{name}.so")
-        procs.append((name, so, subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    fns = {}
-    for name, so, proc in procs:
-        out, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"nvcc {name}: {out}")
-        fn = ctypes.CDLL(so).platanus_lex_search
-        fn.restype, fn.argtypes = kernels._SIGNATURES["platanus_lex_search"]
-        fns[name] = fn
-    return fns
 
 
 def adjacency_lookups(dev, reads_fa: str):
@@ -125,23 +103,21 @@ def launch(fn, table, queries, n: int, mode: str):
 
 
 def main() -> int:
-    if len(sys.argv) > 2:
-        cs.fail("usage: lex_search_in_turns.py [OLD_lex_search.cu]")
+    it.require_card("lex_search_in_turns.py [OLD_lex_search.cu]",
+                    len(sys.argv) <= 2)
     import torch
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: needs a CUDA card")
+
     from platanus_b_tpu_torch.ops import search
-    out_dir = os.path.join(REPO, "platanus_b_tpu_torch", "build", "in_turns")
-    os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(REPO, "platanus_b_tpu_torch", "csrc", "lex_search.cu")
+    src = os.path.join(it.CSRC, "lex_search.cu")
     sources = [("current", src, [])]
     sources += [(name, src, flags) for name, flags in VARIANTS]
     if len(sys.argv) == 2:
         sources.insert(0, ("old", os.path.abspath(sys.argv[1]), []))
-    fns = build_all(sources, out_dir)
+    fns = {name: it.bind(lib, "platanus_lex_search")
+           for name, lib in it.build_all(sources).items()}
     dev = torch.device("cuda")
     from platanus_b_tpu_torch.simulate import simulate_reads
-    reads_fa = os.path.join(out_dir, "reads_1000000.fa")
+    reads_fa = os.path.join(it.OUT_DIR, "reads_1000000.fa")
     simulate_reads(reads_fa, 1_000_000, 125, 40, 0.003, 123)
     shapes = [(name, "lookup", *args)
               for name, args in adjacency_lookups(dev, reads_fa).items()]
@@ -161,10 +137,7 @@ def main() -> int:
             got = run()
             cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                      f"{name}: {k} != plain")
-        order = list(runs) + list(reversed(runs))
-        ms = {k: [] for k in runs}
-        for k in order:
-            ms[k].append(cs.cuda_ms(runs[k], reps=20))
+        ms = it.in_turns(runs)
         print(json.dumps({"shape": name, "mode": mode, "rows": n,
                           "capacity": cap, "lanes": L, "queries": M,
                           "ms_in_turns": ms}), flush=True)

@@ -57,7 +57,9 @@ _SIGNATURES = {
                                 _vp, _vp]),
     "platanus_lex_search": (_ci, [_vp, _vp, _cll, _ci, _cll, _cll, _ci, _ci,
                                   _vp, _vp, _vp]),
-    "platanus_unitig_sum": (_ci, [_vp, _vp, _cll, _cll, _vp, _vp, _vp, _vp]),
+    "platanus_unitig_sum_scratch": (_ci, [_cll, _cll, _vp]),
+    "platanus_unitig_sum": (_ci, [_vp, _vp, _cll, _cll, _vp, _vp, _vp, _vp,
+                                  _cll, _vp, _cll, _vp]),
 }
 
 _lib = None
@@ -262,20 +264,42 @@ def min_pair(ptr: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     LAUNCHES["list_rank"] += 1
 
 
+# csrc/unitig_sum.cu's scratch, one (zeroed, work) pair of uint8 tensors a
+# (device, stream), grown on demand: the kernel leaves `zeroed` zero and
+# needs nothing of `work`, so calls queued in order on one stream share it
+_UNITIG_SCRATCH: dict = {}
+
+
 def unitig_sum(uid: torch.Tensor, counts: torch.Tensor, num_u: int,
-               out: torch.Tensor) -> None:
-    """Launch csrc/unitig_sum.cu on contiguous CUDA tensors the caller
-    checked: uid and counts (n,) int64 in, out (num_u,) float32 receives
-    each unitig's sequential float32 sum of counts in node order."""
+               out: torch.Tensor, ulen: torch.Tensor | None = None,
+               stats: torch.Tensor | None = None) -> None:
+    """Launch csrc/unitig_sum.cu (one cooperative launch) on contiguous
+    CUDA tensors the caller checked: uid and counts (n,) int64 in, out
+    (num_u,) float32 receives each unitig's sequential float32 sum of
+    counts in node order, ulen (num_u,) int64 (if given) its node count,
+    stats (4,) int64 (if given) the long unitigs (above 2^24), their
+    chunks, the chunks replayed and the longest walk's steps."""
     lib = library()
     n = uid.shape[0]
-    # the key sums and the count of long unitigs; the long unitigs' ids
-    sums = torch.empty(num_u + 1, dtype=torch.int64, device=uid.device)
-    longs = torch.empty(max(num_u, 1), dtype=torch.int32, device=uid.device)
+    sizes = (ctypes.c_longlong * 2)()
     with torch.cuda.device(uid.device):
+        stream = _stream(uid)
+        _check(lib.platanus_unitig_sum_scratch(n, num_u, sizes),
+               "unitig_sum")
+        key = (uid.device.index, stream)
+        zeroed, work = _UNITIG_SCRATCH.get(key, (None, None))
+        if zeroed is None or zeroed.numel() < sizes[0]:
+            zeroed = torch.zeros(sizes[0], dtype=torch.uint8,
+                                 device=uid.device)
+        if work is None or work.numel() < sizes[1]:
+            work = torch.empty(sizes[1], dtype=torch.uint8, device=uid.device)
+        _UNITIG_SCRATCH[key] = (zeroed, work)
         rc = lib.platanus_unitig_sum(
             uid.data_ptr(), counts.data_ptr(), n, num_u, out.data_ptr(),
-            sums.data_ptr(), longs.data_ptr(), _stream(uid))
+            ulen.data_ptr() if ulen is not None else None,
+            stats.data_ptr() if stats is not None else None,
+            zeroed.data_ptr(), zeroed.numel(), work.data_ptr(), work.numel(),
+            stream)
     _check(rc, "unitig_sum")
     LAUNCHES["unitig_sum"] += 1
 

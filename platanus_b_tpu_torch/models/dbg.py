@@ -122,22 +122,30 @@ def unitig_count_sums_plain(uid: torch.Tensor, counts: torch.Tensor,
 
 
 def unitig_count_sums(uid: torch.Tensor, counts: torch.Tensor,
-                      num_u: int) -> torch.Tensor:
+                      num_u: int, with_ulen: bool = False):
     """dbg.py:338-340 and clean.py:512-514: per-unitig float32 sums of node
     counts, each the sequential float32 sum in node-id order that the
     reference's scatter-add gives (above 2^24 it differs from the exact
-    sum). A CUDA tensor launches csrc/unitig_sum.cu (K7), with no host
-    sync; a CPU tensor takes the plain version."""
+    sum); with `with_ulen`, (sums, ulen), ulen (dbg.py:336-337) the int64
+    node count of each unitig, from the same read. A CUDA tensor launches
+    csrc/unitig_sum.cu (K7) once, with no host sync; a CPU tensor takes
+    the plain version (and _per_unitig_sum for ulen)."""
     counts = counts.to(torch.int64)
     if uid.device != counts.device:
         raise ValueError("uid and counts must share one device")
     if uid.device.type == "cpu":
-        return unitig_count_sums_plain(uid, counts, num_u)
+        csum = unitig_count_sums_plain(uid, counts, num_u)
+        if not with_ulen:
+            return csum
+        return csum, _per_unitig_sum(uid, torch.ones_like(uid), num_u)
     if uid.device.type != "cuda":
         raise ValueError(f"unsupported device {uid.device}")
     out = torch.empty(num_u, dtype=torch.float32, device=uid.device)
-    kernels.unitig_sum(uid.contiguous(), counts.contiguous(), num_u, out)
-    return out
+    ulen = (torch.empty(num_u, dtype=torch.int64, device=uid.device)
+            if with_ulen else None)
+    kernels.unitig_sum(uid.contiguous(), counts.contiguous(), num_u, out,
+                       ulen)
+    return (out, ulen) if with_ulen else out
 
 
 def _rank_pass(nxt: torch.Tensor, iters: int):
@@ -224,8 +232,7 @@ def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
     uid = torch.where(node_alive_nonj, uid, INVALID)
 
     # after num_u, nothing reads the card: masks become dropped slots
-    ulen = _per_unitig_sum(uid, torch.ones_like(uid), num_u)
-    csum = unitig_count_sums(uid, counts, num_u)
+    csum, ulen = unitig_count_sums(uid, counts, num_u, True)
     ucov = torch.floor(csum / torch.clamp(ulen, min=1).to(torch.float32)
                        + 0.5).to(torch.int64)
     heads_idx = torch.empty(num_u + 1, dtype=torch.int64, device=dev)

@@ -358,6 +358,28 @@ def coverage_counts(seed: int, n: int, lo: int, hi: int,
     return c
 
 
+def interleaved_unitigs(seed: int, nodes: int, unitigs: int, n_long: int,
+                        long_lo: int, long_hi: int, lo: int,
+                        hi: int) -> tuple[np.ndarray, np.ndarray]:
+    """(uid, counts), both (nodes,) int64: `n_long` unitigs of
+    [long_lo, long_hi] nodes each, the other unitigs sharing the remaining
+    nodes (at least one each), the nodes in random order (so every unitig
+    is spread over the whole array, as node ids in sorted k-mer order
+    spread a real unitig) and counts drawn uniformly from [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    long_len = rng.integers(long_lo, long_hi + 1, size=n_long)
+    short = unitigs - n_long
+    rest = nodes - int(long_len.sum()) - short
+    if short < 0 or rest < 0:
+        raise ValueError(f"{nodes} nodes cannot fill {unitigs} unitigs")
+    lens = np.concatenate([long_len, 1 + rng.multinomial(
+        rest, np.full(short, 1.0 / short)) if short else []])
+    ids = rng.permutation(unitigs)
+    uid = rng.permutation(np.repeat(ids, lens.astype(np.int64)))
+    counts = rng.integers(lo, hi + 1, size=nodes)
+    return uid.astype(np.int64), counts.astype(np.int64)
+
+
 def _key_words(rng, rows: int, W: int, alphabet: int) -> np.ndarray:
     """(rows, W) uint32 words, each word one of `alphabet` values spread
     over the range; the top word is halved, so no row is the SENTINEL."""

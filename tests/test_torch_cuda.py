@@ -24,8 +24,8 @@ from platanus_b_tpu_torch.ops import kmer as tkmer
 from platanus_b_tpu_torch.ops import rank as trank
 from platanus_b_tpu_torch.ops import search as tsearch
 from platanus_b_tpu_torch.simulate import (chain_dp_inputs, coverage_counts,
-                                           label_links, search_inputs,
-                                           ungap_edge_inputs)
+                                           interleaved_unitigs, label_links,
+                                           search_inputs, ungap_edge_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -770,6 +770,42 @@ def _unitig_sum_case(case: str, dev):
         counts = rng.integers(-5, 1 << 26, size=n)
     elif case == "no_nodes":
         uid, counts, num_u = np.zeros(0, np.int64), np.zeros(0, np.int64), 3
+    elif case == "many_long_interleaved":
+        num_u = 20_000
+        uid, counts = interleaved_unitigs(7, 1 << 22, num_u, 12, 250_000,
+                                          300_000, 60, 99)
+    elif case == "binade_walk":
+        # one unitig of 60,000 nodes, counts log-uniform up to 2^20: its
+        # sum passes 2^24 and then 2^25 ... 2^31, ulps 2 to 256
+        n, num_u = 60_000, 3
+        uid = np.zeros(n, np.int64)
+        uid[rng.random(n) < 0.02] = 1
+        counts = (2.0 ** rng.uniform(0, 20, size=n)).astype(np.int64)
+    elif case == "ties":
+        # 2^24 - 1, then odd counts: inside [2^24, 2^25), where the ulp is
+        # 2, every add is a tie
+        n, num_u = 40_000, 2
+        uid = np.zeros(n, np.int64)
+        counts = 2 * rng.integers(0, 50, size=n) + 1
+        counts[0] = (1 << 24) - 1
+        uid[rng.random(n) < 0.1] = 1
+        uid[0] = 0
+    elif case == "negative_in_long":
+        n, num_u = 300_000, 5
+        uid = rng.integers(0, num_u, size=n)
+        uid[rng.random(n) < 0.8] = 0
+        counts = rng.integers(60, 100, size=n)
+        counts[rng.choice(np.flatnonzero(uid == 0), 6, replace=False)] = \
+            [-1000, -1, -77, -(1 << 20), -3, -50_000]
+    elif case == "count_past_2p24":
+        # more than 2^24 nodes: one unitig of 2^24 + 10 nodes, whose node
+        # count a float32 count would round to 2^24
+        n, num_u = (1 << 24) + 4096, 3
+        uid = np.ones(n, np.int64)
+        uid[:(1 << 24) + 10] = 0
+        uid[-7:] = [-1, 2, 2, -1, 2, 2, 2]
+        counts = np.zeros(n, np.int64)
+        counts[rng.choice(n, 100, replace=False)] = rng.integers(1, 100, 100)
     else:
         raise KeyError(case)
     return (torch.from_numpy(uid.astype(np.int64)).to(dev),
@@ -778,24 +814,71 @@ def _unitig_sum_case(case: str, dev):
 
 @pytest.mark.parametrize("case", ["one_unitig_400", "long_300k",
                                   "interleaved_long", "main_path_short",
-                                  "odd_counts", "no_nodes"])
+                                  "odd_counts", "no_nodes",
+                                  "many_long_interleaved", "binade_walk",
+                                  "ties", "negative_in_long",
+                                  "count_past_2p24"])
 def test_unitig_sum_kernel_matches_plain(dev, case):
     """K7 against the sequential float32 sum of the plain version, bit for
-    bit: unitigs above 2^24 (one long one alone, several interleaved with
-    thousands of short ones), counts outside [0, 2^24], no node."""
+    bit, and its ulen against the exact node counts: unitigs above 2^24
+    (one long one alone, several interleaved with thousands of short ones),
+    sums carried across several binades, every add a tie, negative counts
+    in a long unitig, counts outside [0, 2^24], no node, a unitig of more
+    than 2^24 nodes."""
     from platanus_b_tpu_torch.models import dbg as tdbg
     uid, counts, num_u = _unitig_sum_case(case, dev)
     before = kernels.LAUNCHES["unitig_sum"]
     got = tdbg.unitig_count_sums(uid, counts, num_u)
     assert kernels.LAUNCHES["unitig_sum"] == before + 1
+    got2, ulen = tdbg.unitig_count_sums(uid, counts, num_u, True)
     want = tdbg.unitig_count_sums_plain(uid.cpu(), counts.cpu(), num_u)
     assert got.is_cuda and got.dtype == torch.float32
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), want) and torch.equal(got2.cpu(), want)
+    assert ulen.dtype == torch.int64
+    assert torch.equal(ulen, tdbg._per_unitig_sum(uid, torch.ones_like(uid),
+                                                   num_u))
+    exact = tdbg._per_unitig_sum(uid, counts, num_u).cpu()
+    if case in ("many_long_interleaved", "binade_walk", "ties",
+                "negative_in_long"):
+        assert (exact.double() != want.double()).any()    # rounding shows
     if case in ("one_unitig_400", "long_300k"):
         ulen = uid.shape[0]
         ucov = int(torch.floor(got / ulen + 0.5)[0])
         exact = int(torch.floor(counts.sum().to(torch.float32) / ulen + 0.5))
         assert (ucov, exact) == ((57603, 57602) if ulen == 400 else (80, 79))
+
+
+def test_labeling_sums_are_one_device_op(dev):
+    """The count sums of a labeling with no unitig above 2^24, ulen
+    included, run as at most two device operations (one cooperative launch;
+    a scratch's first zeroing), counted by torch.profiler."""
+    from platanus_b_tpu_torch.models import dbg as tdbg
+    g = _circular_dbg(dev)
+    calls = []
+    orig = tdbg.unitig_count_sums
+
+    def keep(*args):
+        calls.append(args)
+        return orig(*args)
+
+    tdbg.unitig_count_sums = keep
+    try:
+        g.label_unitigs()
+    finally:
+        tdbg.unitig_count_sums = orig
+    (uid, counts, num_u, with_ulen), = calls
+    assert with_ulen and num_u > 0
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for warm in (False, True):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            csum, ulen = tdbg.unitig_count_sums(uid, counts, num_u, True)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert 1 <= len(ops) <= (1 if warm else 2), [e.name for e in ops]
+    assert torch.equal(csum.cpu(), tdbg.unitig_count_sums_plain(
+        uid.cpu(), counts.cpu(), num_u))
 
 
 def test_unitig_sums_on_card_match_cpu(dev):

@@ -170,7 +170,8 @@ def _names_jax_package(name: str | None) -> bool:
 
 @pytest.mark.parametrize("path", _sources() + [
     REPO / "chip_smoke.py", REPO / "chain_dp_in_turns.py",
-    REPO / "lex_search_in_turns.py"],
+    REPO / "lex_search_in_turns.py", REPO / "unitig_sum_in_turns.py",
+    REPO / "in_turns.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_of_the_jax_package(path):
     """No absolute import, top-level or inside a function, names the JAX

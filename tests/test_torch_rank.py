@@ -292,6 +292,205 @@ def test_unitig_count_sums_plain_is_sequential_float32(seed):
     assert (exact[:num_u - 1] > EXACT).all() and int(exact[-1]) == 0
 
 
+def test_unitig_count_sums_with_ulen_on_cpu():
+    """On the CPU, unitig_count_sums(..., with_ulen=True) gives the plain
+    sums and the exact node counts, those of _per_unitig_sum."""
+    rng = np.random.default_rng(5)
+    uid = torch.from_numpy(rng.integers(-1, 40, size=4000))
+    counts = torch.from_numpy(rng.integers(0, 1 << 20, size=4000))
+    csum, ulen = tdbg.unitig_count_sums(uid, counts, 41, True)
+    assert torch.equal(csum, tdbg.unitig_count_sums_plain(uid, counts, 41))
+    assert ulen.dtype == torch.int64 and int(ulen[40]) == 0
+    assert torch.equal(ulen, tdbg._per_unitig_sum(uid, torch.ones_like(uid),
+                                                  41))
+    assert torch.equal(tdbg.unitig_count_sums(uid, counts, 41), csum)
+
+
+# A model of csrc/unitig_sum.cu's long path in numpy: chunk transfers
+# (each lane's run of values composed in order, then an ordered tree over
+# the 32 lanes), the binade guessed from the exact prefix, and the walk
+# that takes a transfer or replays the chunk with float32 adds.
+TOP = 1 << 24
+VALUE_CAP = 1 << 31
+
+
+def _transfer_add(t, x, j):
+    i0, i1, e0, e1, ok = t
+    if not (x >= 0 and x < VALUE_CAP):
+        return (i0, i1, e0, e1, False)
+    X = int(x)
+    if j == 0:
+        return (i0 + X, i1 + X, e0, e1, ok)
+    q, r, half = X >> j, X & ((1 << j) - 1), 1 << (j - 1)
+    d0 = q + (r > half or (r == half and (e0 + q) & 1 == 1))
+    d1 = q + (r > half or (r == half and (e1 + q) & 1 == 1))
+    return (i0 + d0, i1 + d1, (e0 + d0) & 1, (e1 + d1) & 1, ok)
+
+
+def _compose(a, b):
+    i0, i1, e0, e1, ok = a
+    bi = (b[0], b[1])
+    be = (b[2], b[3])
+    return (i0 + bi[e0], i1 + bi[e1], be[e0], be[e1], ok and b[4])
+
+
+def _chunk_transfer(chunk, j):
+    per = max(1, len(chunk) // 32 + (len(chunk) % 32 > 0))
+    lanes = []
+    for lane in range(32):
+        t = (0, 0, 0, 1, True)
+        for x in chunk[lane * per:(lane + 1) * per]:
+            t = _transfer_add(t, x, j)
+        lanes.append(t)
+    d = 1
+    while d < 32:
+        for lane in range(0, 32, 2 * d):
+            lanes[lane] = _compose(lanes[lane], lanes[lane + d])
+        d *= 2
+    return lanes[0]
+
+
+def _to_float(j, k, other):
+    if j < 0:
+        return other
+    return np.float32(k * 2 ** j)
+
+
+def _from_float(s):
+    if not s >= 0 or np.isinf(s):
+        return -1, 0, s
+    if s < TOP:
+        return 0, int(s), s
+    m, e = math.frexp(float(s))
+    return e - 24, int(m * TOP), s
+
+
+def _records(vals, C):
+    """Each chunk's (increment from parity 0, from 1, guess, ok), the
+    increments capped at 2^24, as the kernel stores them."""
+    prefix, out = 0, []
+    for at in range(0, len(vals), C):
+        chunk = vals[at:at + C]
+        jg = 0 if prefix < TOP else prefix.bit_length() - 24
+        prefix += sum(max(min(int(x), VALUE_CAP - 1), 1 - VALUE_CAP)
+                      for x in chunk)
+        i0, i1, _e0, _e1, ok = _chunk_transfer(chunk, jg)
+        out.append((min(i0, TOP), min(i1, TOP), jg, ok))
+    return out
+
+
+def _chunked_fold(vals, C):
+    """(float32 sum, chunks replayed, walk steps) of vals (float32) by the
+    model: steps of up to 32 chunks, whose transfers a warp scan composes
+    in order; the first chunk that cannot be taken is replayed."""
+    rec = _records(vals, C)
+    j, k, other = 0, 0, np.float32(0)
+    replays = steps = 0
+    for cb in range(0, len(rec), 32):
+        batch = rec[cb:cb + 32]
+        start = 0
+        while start < len(batch):
+            steps += 1
+            kl, t0, t1, bad = [], 0, 0, None
+            for lane, (i0, i1, jg, ok) in enumerate(batch):
+                if lane >= start:
+                    t0, t1 = (t0 + (i1 if t0 & 1 else i0),
+                              t1 + (i0 if t1 & 1 else i1))
+                kl.append(k + (t1 if k & 1 else t0))
+                if lane >= start and bad is None and not (
+                        ok and j >= 0 and jg == j and kl[-1] < TOP):
+                    bad = lane
+            if bad is None:
+                k = kl[-1]
+                break
+            if bad > start:
+                k = kl[bad - 1]
+            s = _to_float(j, k, other)
+            for x in vals[(cb + bad) * C:(cb + bad + 1) * C]:
+                s = np.float32(s + x)
+            j, k, other = _from_float(s)
+            replays += 1
+            start = bad + 1
+    return _to_float(j, k, other), replays, steps
+
+
+def _sequential_float32(vals):
+    s = np.zeros(1, np.float32)
+    np.add.at(s, np.zeros(len(vals), np.int64), vals)
+    return s[0]
+
+
+def _fold_case(case, C):
+    rng = np.random.default_rng(len(case) + C)
+    if case == "ties":                        # ulp 2, every count odd
+        v = np.concatenate([[TOP - 1], 2 * rng.integers(0, 50, 3000) + 1])
+    elif case == "crossing":                  # passes 2^24 once
+        v = rng.integers(800, 1001, 20_000)
+    elif case == "ends_at_2p24":              # a chunk ends on 2^24
+        head = rng.integers(0, 100, 2 * C - 1)
+        v = np.concatenate([head, [TOP - int(head.sum())],
+                            2 * rng.integers(0, 50, 3 * C + 5) + 1])
+    elif case == "above_2p24":                # counts past 2^24 and 2^31
+        v = rng.integers(0, 1000, 4000)
+        v[rng.choice(4000, 40, replace=False)] = rng.integers(
+            TOP, 1 << 27, 40)
+        v[rng.choice(4000, 3, replace=False)] = (1 << 33) + 5
+    elif case == "negative":
+        v = rng.integers(60, 100, 6000)
+        v[rng.choice(6000, 5, replace=False)] = [-1, -7, -(1 << 22), -99, -3]
+        v[0] = -5
+        v = np.concatenate([[TOP + 3], v])
+    elif case == "empty":
+        v = np.zeros(0, np.int64)
+    else:                                     # binade walk: to 2^32
+        v = (2.0 ** rng.uniform(0, 20, 5000)).astype(np.int64)
+    return np.asarray(v, np.int64).astype(np.float32)
+
+
+@pytest.mark.parametrize("C", [1, 7, 256, 512])
+@pytest.mark.parametrize("case", ["ties", "crossing", "ends_at_2p24",
+                                  "above_2p24", "negative", "empty",
+                                  "binade_walk"])
+def test_chunked_fold_model_is_sequential_float32(case, C):
+    """The long path's fold (chunk transfers at the binade the exact prefix
+    guesses, then a walk that replays any chunk it cannot take) equals the
+    sequential float32 sum bit for bit, and takes most chunks whole."""
+    v = _fold_case(case, C)
+    got, replays, steps = _chunked_fold(v, C)
+    want = _sequential_float32(v)
+    assert np.float32(got).tobytes() == want.tobytes()
+    if case != "empty":
+        exact = int(np.asarray(v, np.float64).sum())
+        if case in ("ties", "crossing", "binade_walk"):
+            assert float(want) != exact           # the rounding shows
+        if case in ("ties", "crossing", "binade_walk") and C == 256:
+            assert replays <= 4
+            assert steps <= -(-len(v) // (32 * C)) + replays
+    if case == "ends_at_2p24":
+        assert float(_sequential_float32(v[:2 * C])) == TOP
+
+
+def test_chunked_fold_model_on_random_counts():
+    """The model against the sequential float32 sum on random counts,
+    mixed in size and sign, at chunk sizes 1, 7 and 256."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+    counts = st.one_of(st.integers(0, 99), st.integers(0, 1 << 20),
+                       st.integers(TOP - 50, TOP + 50),
+                       st.integers(-(1 << 10), 1 << 34))
+
+    @settings(max_examples=60, deadline=None, derandomize=True,
+              database=None)
+    @given(st.lists(counts, max_size=600), st.sampled_from([1, 7, 256]),
+           st.integers(0, 1 << 25))
+    def check(vals, C, start):
+        v = np.asarray([start] + vals, np.int64).astype(np.float32)
+        got, _replays, _steps = _chunked_fold(v, C)
+        assert np.float32(got).tobytes() == _sequential_float32(v).tobytes()
+
+    check()
+
+
 @pytest.mark.parametrize("case", ["n0", "padded", "full", "dups"])
 @pytest.mark.parametrize("W", [1, 2, 3, 4, 6, 8])
 def test_search_matches_reference(W, case):
