@@ -64,14 +64,15 @@ Phases, one JSON line each; any failure exits non-zero:
    against its plain version on the largest lookup_range of polish (the
    mapper's padded index, beside two torch.searchsorted calls on its live
    rows; the "mapper_kernels" line); then the round once
-   more under torch.profiler for the card's busy share of each command;
+   more under torch.profiler for each command's largest kernels and
+   copies;
 6. a whole `iterate -i 1` through the port's CLI (count, kmer_divide,
    solve_dbg -unphase, polish, gap_close, final divide, final polish) on
    phase 5's reads and its scaffold split at the gaps into 1,001 contigs;
    every file it writes must hash to smoke_expected.json, kmer_extract and
    ungap_align must have run, and the scaffolder must have joined contigs;
-   then its solve_dbg stage once more under torch.profiler for the card's
-   busy share;
+   then its solve_dbg stage once more under torch.profiler for its
+   largest kernels and copies;
 7. the phasing flow: the default `solve_dbg -c contigs.fa -o phase` (no
    -unphase) on a 1 Mbp homozygous contig and two 200 kbp haplotypes 0.3 %
    apart (simulate.simulate_phase_contigs); its haplotig pairing aligns
@@ -543,8 +544,8 @@ def torchrun(argv: list[str], work: str, nproc: int) -> dict:
     platanus_b_tpu_torch <argv>` from `work`, each rank's output tagged
     [default<r>]: by --tee. Returns the wall from launch to exit, each
     rank's DEVICE REPORT (peak device bytes, kernel launches, stage times,
-    seconds since its logger's start) and the output, which is also kept
-    in `work`. A failed rank fails the run."""
+    stage records, seconds since its logger's start) and the output, which
+    is also kept in `work`. A failed rank fails the run."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, env.get("PYTHONPATH")) if p)
@@ -1481,29 +1482,27 @@ def reset_launches() -> None:
         kernels.LAUNCHES[key] = 0
 
 
-def device_busy_ms(prof) -> tuple[float, dict]:
-    """Sum of the card's kernel and copy time in a torch.profiler run, and
-    the five largest kernels by name (ms)."""
+def top_device_ms(prof) -> dict:
+    """The five largest kernels and copies by name in a torch.profiler
+    run, by their summed card time (ms)."""
     from torch.autograd import DeviceType
-    busy = {}
+    by_name = {}
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
             name = evt.key.split("(")[0].split("<")[0].strip()[:60]
-            busy[name] = busy.get(name, 0.0) + us / 1000.0
-    top = dict(sorted(busy.items(), key=lambda kv: -kv[1])[:5])
-    return sum(busy.values()), top
+            by_name[name] = by_name.get(name, 0.0) + us / 1000.0
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
 
 
 def run_cli(argv: list[str], record: dict | None = None,
             profile: bool = False) -> int:
     """One command through the port's CLI; a non-zero exit fails the run.
     With `record`, adds the command's wall, launches, stage times and peak
-    device memory under its name; with `profile`, also the card's busy
-    time from torch.profiler (the wall then includes the profiler's
-    start-up and overhead, so the idle share is taken against the wall
-    of an unprofiled run)."""
+    device memory under its name; with `profile`, also its five largest
+    kernels and copies by card time from torch.profiler (the wall then
+    includes the profiler's start-up and overhead)."""
     import contextlib
 
     import torch
@@ -1529,8 +1528,7 @@ def run_cli(argv: list[str], record: dict | None = None,
                "launches": {k: kernels.LAUNCHES[k] - before[k] for k in before},
                "peak_device_gib": torch.cuda.max_memory_allocated() / (1 << 30)}
         if profile:
-            busy, top = device_busy_ms(prof)
-            rec.update(device_busy_ms=busy, top_device_ms=top)
+            rec["top_device_ms"] = top_device_ms(prof)
         record[argv[0]] = rec
     return rc
 
@@ -1784,20 +1782,16 @@ def main() -> int:
                               max_abs_err=max(kern["lex_search"]["max_abs_err"],
                                               lm[0]["max_abs_err"]))
     PHASE["name"] = "round"
-    # the round once more under torch.profiler: the card's idle share of
-    # each command, against the unprofiled wall above
+    # the round once more under torch.profiler: each command's largest
+    # kernels and copies
     prof_work = os.path.join(work, "round_profiled")
     shutil.rmtree(prof_work, ignore_errors=True)
-    walls = {name: rec["wall_s"] for name, rec in steps.items()}
-    occ_wall = walls["assemble"]
+    occ_wall = steps["assemble"]["wall_s"]
     steps = {}
     run_round(prof_work, round_data,
               lambda argv: run_cli(argv, steps, profile=True))
     check(round_hashes(prof_work) == rexp["sha256"],
           "profiled round outputs differ from smoke_expected.json")
-    for name, rec in steps.items():
-        rec["device_idle_share"] = max(
-            0.0, 1.0 - rec["device_busy_ms"] / (1000.0 * walls[name]))
     emit({"phase": "round_profiled", "ok": True, "steps": steps})
 
     # ---- phase 6: a whole `iterate -i 1`
@@ -1837,7 +1831,7 @@ def main() -> int:
               f"{name} never launched in iterate")
     check(n_cons < n_div, "solve_dbg joined no contigs")
     # its solve_dbg -unphase stage once more under torch.profiler, on the
-    # same input: the card's idle share against the stage's wall above
+    # same input: its largest kernels and copies
     stage = "solve_dbg -unphase (round 1)"
     os.makedirs(os.path.join(it_work, "prof"), exist_ok=True)
     prof_steps = {}
@@ -1854,12 +1848,8 @@ def main() -> int:
           == iexp["sha256"]["it_iterateIntermediateResults/it1/"
                             "it_consensusScaffold.fa"],
           "profiled solve_dbg output differs from smoke_expected.json")
-    prec = prof_steps["solve_dbg"]
-    prec["unprofiled_wall_s"] = stage_walls[stage]
-    prec["device_idle_share"] = max(
-        0.0, 1.0 - prec["device_busy_ms"] / (1000.0 * stage_walls[stage]))
     emit({"phase": "iterate_profiled", "ok": True, "stage": stage,
-          "solve_dbg": prec})
+          "solve_dbg": prof_steps["solve_dbg"]})
 
     # ---- phase 7: the phasing flow (the default solve_dbg)
     PHASE["name"] = "phasing"

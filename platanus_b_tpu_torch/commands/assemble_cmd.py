@@ -90,7 +90,8 @@ def run(args) -> int:
         # writes, or the ranks would race on the same -o paths
         LOG.info("assemble completed (non-zero host, no output)!")
     else:
-        write_outputs(args, result)
+        with LOG.stage("writing outputs"):
+            write_outputs(args, result)
         LOG.info("assemble completed!")
     LOG.report_memory()
     LOG.report_device_memory()
@@ -101,9 +102,13 @@ def run(args) -> int:
 def report_rank() -> None:
     """The run's per-rank report, one JSON line on the log after the
     memory report: peak device bytes on each card, this process's kernel
-    launches, its stage times and the seconds since its logger started (at
-    import, after torch's). Under torchrun each rank prints its own, which
-    is how an operator (or chip_smoke.py phase 9) compares the ranks."""
+    launches, its stage times, its stage records (`[name, parent, start,
+    end, counters]`, the parent an index into the list or -1, the times in
+    seconds since the logger started, the end null while the stage is
+    still open, as an enclosing `iterate` stage is) and the seconds since
+    its logger started (at import, after torch's). Under torchrun each rank
+    prints its own, which is how an operator (or chip_smoke.py phase 9)
+    compares the ranks."""
     if not torch.cuda.is_initialized():
         return
     peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d)
@@ -111,6 +116,9 @@ def report_rank() -> None:
     LOG.info("#### DEVICE REPORT #### " + json.dumps(
         {"peak_allocated_bytes": peaks, "kernel_launches": kernels.LAUNCHES,
          "stage_s": LOG.timings,
+         "spans": [[s.name, s.parent, s.t0 - LOG.started,
+                    None if s.t1 is None else s.t1 - LOG.started,
+                    s.counters] for s in LOG.spans],
          "since_start_s": time.perf_counter() - LOG.started}))
 
 

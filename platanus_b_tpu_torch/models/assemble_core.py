@@ -417,12 +417,14 @@ def save_contig_next_k(dbg: DBG, next_k: int, occurrence_ratio: float) -> KmerTa
     next_k-mers of the extended unitig sequences, occurrence =
     u16(cov * ratio + 0.5), max-merged across unitigs."""
     diff = next_k - dbg.k
-    flat_ext, ext_offs, ext_lens, ucov = \
-        extended_unitig_sequences_flat(dbg, diff)
+    with LOG.stage("    unitig sequences"):
+        flat_ext, ext_offs, ext_lens, ucov = \
+            extended_unitig_sequences_flat(dbg, diff)
     occs = np.minimum((ucov * occurrence_ratio + 0.5).astype(np.uint32),
                       cnt.MAX_OCCURRENCE)
-    return kmerize_sequences(flat_ext, ext_offs, ext_lens, occs, next_k,
-                             dbg.device)
+    with LOG.stage("    kmerize"):
+        return kmerize_sequences(flat_ext, ext_offs, ext_lens, occs, next_k,
+                                 dbg.device)
 
 
 def edge_kmer_keys(dbg: DBG, next_k: int):
@@ -615,7 +617,8 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
     n_parts = 1
     while opts.memory_gb and need_gb / n_parts > opts.memory_gb and n_parts < 64:
         n_parts *= 2
-    reads = stage_reads(batches, device)
+    with LOG.stage("staging reads"):
+        reads = stage_reads(batches, device)
     with LOG.stage(f"K = {k0}, saving kmers from reads"):
         if n_parts > 1:
             LOG.counter("NUM_COUNT_PARTITIONS", n_parts)
@@ -664,19 +667,22 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
         return AssembleResult([], [], [], [], [], average_length, k0,
                               kmer_table=table, hist0=hist0, k0=k0)
 
-    if shard is not None:
-        # cutoff-filter each slice, THEN gather: the replicated graph build
-        # sees only the filtered table
-        keep = shard[1] >= cutoffs[0]
-        table = _gather_table(k0, shard[0][keep], shard[1][keep], device)
-        del shard
-        dbg = DBG(k0, table.keys, table.counts)
-    else:
-        dbg = build_dbg_from_table(KmerTable(k0, keys0, counts0), cutoffs[0])
-        del keys0, counts0
+    with LOG.stage(f"K = {k0}, graph build"):
+        if shard is not None:
+            # cutoff-filter each slice, THEN gather: the replicated graph
+            # build sees only the filtered table
+            keep = shard[1] >= cutoffs[0]
+            table = _gather_table(k0, shard[0][keep], shard[1][keep], device)
+            del shard
+            dbg = DBG(k0, table.keys, table.counts)
+        else:
+            dbg = build_dbg_from_table(KmerTable(k0, keys0, counts0),
+                                       cutoffs[0])
+            del keys0, counts0
     clean.cut_branch_iterative(dbg, opts.branch_threshold)
     if not opts.fixed_average_coverage:
-        average_coverage = clean.average_coverage_excluding_bubble(dbg)
+        with LOG.stage("average coverage"):
+            average_coverage = clean.average_coverage_excluding_bubble(dbg)
     else:
         average_coverage = opts.fixed_average_coverage
     if opts.repeat_mode:
@@ -714,7 +720,8 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
 
     # ---- output treatment (outputAndAfterTreatment, assemble.cpp:506-622)
     k_last = ks[-1]
-    lmc = left_minimal_coverage(dbg)
+    with LOG.stage("left minimal coverage"):
+        lmc = left_minimal_coverage(dbg)
     length_cutoff = 2 * k_last
     LOG.counter("LENGTH_CUTOFF", length_cutoff)
     LOG.counter("COVERAGE_CUTOFF", lmc)
@@ -740,13 +747,14 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
         dbg = build_dbg_from_table(table, cutoffs[-1])
 
     cov_ratio = average_length / (average_length - k_last + 1.0)
-    contigs, contig_covs = _contigs_of(dbg, cov_ratio)
-    ji, jc = dbg.junction_info()
-    j_codes = (kmer_to_codes(dbg.keys[torch.from_numpy(ji).to(device)],
-                             k_last).cpu().numpy()
-               if len(ji) else np.zeros((0, k_last), np.uint8))
-    junctions = [j_codes[i] for i in range(len(ji))]
-    junction_covs = [float(c) * cov_ratio for c in jc]
+    with LOG.stage("contigs"):
+        contigs, contig_covs = _contigs_of(dbg, cov_ratio)
+        ji, jc = dbg.junction_info()
+        j_codes = (kmer_to_codes(dbg.keys[torch.from_numpy(ji).to(device)],
+                                 k_last).cpu().numpy()
+                   if len(ji) else np.zeros((0, k_last), np.uint8))
+        junctions = [j_codes[i] for i in range(len(ji))]
+        junction_covs = [float(c) * cov_ratio for c in jc]
     return AssembleResult(contigs, contig_covs, junctions, junction_covs,
                           bubbles, average_length, k_last,
                           kmer_table=table, hist0=hist0, k0=k0)
@@ -823,8 +831,9 @@ def assemble_repeat(batches: list[ReadBatch], opts: AssembleOptions,
         clean.cut_branch_iterative(dbg, opts.branch_threshold)
         clean.crush_bubble_iterative(dbg, avg_cov, 0.95)
 
-    contigs, contig_covs = _contigs_of(
-        dbg, average_length / (average_length - max_k + 1.0))
+    with LOG.stage("contigs"):
+        contigs, contig_covs = _contigs_of(
+            dbg, average_length / (average_length - max_k + 1.0))
     return AssembleResult(contigs, contig_covs, [], [], [],
                           average_length, max_k, kmer_table=table,
                           hist0=hist0, k0=k0)

@@ -137,36 +137,46 @@ def delete_erroneous(dbg: DBG, length_cut: int, coverage_cut: float) -> int:
 def cut_branch_iterative(dbg: DBG, branch_threshold: float = 0.5) -> int:
     """cutBranchIterative (graph.h:1830-1845): fixed point of tip clipping,
     replayed on the element graph after one device labeling."""
-    LOG.info("removing branches...")
-    sim = _ChainSim(dbg)
-    total = 0
-    while True:
-        n = sim.cut_branch_round(branch_threshold)
-        if n == 0:
-            break
-        total += n
-    LOG.counter("NUM_CUT", total)
-    if total:
-        sim.apply()
+    with LOG.stage("removing branches"):
+        with LOG.stage("  chain pull"):
+            sim = _ChainSim(dbg)
+        with LOG.stage("  host replay"):
+            total = rounds = 0
+            while True:
+                rounds += 1
+                n = sim.cut_branch_round(branch_threshold)
+                if n == 0:
+                    break
+                total += n
+            LOG.count("rounds", rounds)
+            LOG.count("elements", sim.ne)
+        LOG.counter("NUM_CUT", total)
+        if total:
+            sim.apply()
     return total
 
 
 def delete_erroneous_iterative(dbg: DBG, length_cut: int, coverage_cut: float,
                                branch_threshold: float = 0.5) -> int:
     """deleteErroneousStraightNodeIterative (graph.h:2086-2106)."""
-    LOG.info("removing erroneous nodes...")
-    sim = _ChainSim(dbg)
-    total = 0
-    while True:
-        n1 = sim.cut_branch_round(branch_threshold)
-        n2 = sim.delete_erroneous_round(min(length_cut, 2**62),
-                                        min(coverage_cut, 3.4e38))
-        if n1 + n2 == 0:
-            break
-        total += n1 + n2
-    LOG.counter("TOTAL_NUM_REMOVED_NODES", total)
-    if total:
-        sim.apply()
+    with LOG.stage("removing erroneous nodes"):
+        with LOG.stage("  chain pull"):
+            sim = _ChainSim(dbg)
+        with LOG.stage("  host replay"):
+            total = rounds = 0
+            while True:
+                rounds += 1
+                n1 = sim.cut_branch_round(branch_threshold)
+                n2 = sim.delete_erroneous_round(min(length_cut, 2**62),
+                                                min(coverage_cut, 3.4e38))
+                if n1 + n2 == 0:
+                    break
+                total += n1 + n2
+            LOG.count("rounds", rounds)
+            LOG.count("elements", sim.ne)
+        LOG.counter("TOTAL_NUM_REMOVED_NODES", total)
+        if total:
+            sim.apply()
     return total
 
 
@@ -328,14 +338,16 @@ def crush_bubble_iterative(dbg: DBG, average_coverage: float,
                            bubble_threshold: float = 0.1,
                            crushed: list[CrushedBubble] | None = None) -> int:
     """crushBubbleIterative (graph.h:1852-1870)."""
-    LOG.info("removing bubbles...")
-    total = 0
-    while True:
-        n = crush_bubble(dbg, average_coverage, bubble_threshold, crushed)
-        LOG.counter("NUM_REMOVED_BUBBLES", n)
-        if n == 0:
-            break
-        total += n
+    with LOG.stage("removing bubbles"):
+        total = 0
+        while True:
+            n = crush_bubble(dbg, average_coverage, bubble_threshold, crushed)
+            LOG.counter("NUM_REMOVED_BUBBLES", n)
+            if n == 0:
+                break
+            total += n
+        # the record keeps the call's total, not the last round's 0
+        LOG.count("NUM_REMOVED_BUBBLES", total)
     return total
 
 
