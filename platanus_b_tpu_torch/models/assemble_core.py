@@ -257,37 +257,85 @@ def extend_kmer_schedule(min_log_p_join: float, average_coverage: float,
 # contig-derived next-k table (saveContig, graph.h:1655-1771)
 # ---------------------------------------------------------------------------
 
-def _revcomp_np(s: np.ndarray) -> np.ndarray:
-    out = (3 - s[::-1].astype(np.int16)) % 5
-    return np.where(out > 3, 4, out).astype(np.uint8)
+@dataclass
+class Layout:
+    """Sequences laid end to end in one (1, width) uint8 code row, each
+    followed by one N (code 4), width padded to a multiple of 32 with N:
+    kmerize's buffer. seq_of (total,) is the sequence of each position
+    (its index among the sequences the layout was given)."""
+
+    codes: torch.Tensor
+    seq_of: torch.Tensor
+    total: int
 
 
-def _ragged_fill(dst, dst_starts, lens, src, src_starts, step=1,
-                 comp=False) -> None:
-    """dst[dst_starts[i]+t] = src[src_starts[i] + step*t] (optionally
-    complemented) for t < lens[i] (assemble_core.py:476)."""
-    lens = np.asarray(lens, dtype=np.int64)
-    sel = lens > 0
-    if not sel.any():
-        return
-    ds = np.asarray(dst_starts, dtype=np.int64)[sel]
-    ss = np.asarray(src_starts, dtype=np.int64)[sel]
-    ln = lens[sel]
-    cum = np.zeros(len(ln) + 1, np.int64)
-    cum[1:] = np.cumsum(ln)
-    within = np.arange(cum[-1], dtype=np.int64) - np.repeat(cum[:-1], ln)
-    dpos = np.repeat(ds, ln) + within
-    spos = np.repeat(ss, ln) + (within if step == 1 else -within)
-    v = src[spos]
-    if comp:
-        v = (3 - v).astype(np.uint8)
-    dst[dpos] = v
+def lay_out_sequences(flat: torch.Tensor, plen: torch.Tensor,
+                      psrc: torch.Tensor, prc: torch.Tensor,
+                      pconst: torch.Tensor, k: int) -> Layout | None:
+    """Build kmerize's buffer on the device from pieces.
+
+    Sequence s is its P pieces in order, row s of the (S, P) tensors:
+    piece j has plen[s, j] bases, each either the constant pconst[s, j]
+    (where it is >= 0) or a gather from flat: flat[psrc + t] for t <
+    plen, or, where prc, the complement of flat[psrc - t] (a reverse
+    complement read backwards from psrc). Sequences shorter than k are
+    left out. One scalar is read to size the buffer; None when no
+    sequence has k bases."""
+    P = plen.shape[1]
+    dev = flat.device
+    keep = plen.sum(dim=1) >= k
+    seg = torch.cat([plen, torch.ones_like(plen[:, :1])], dim=1)
+    seg = torch.where(keep[:, None], seg, 0).reshape(-1)
+    total = int(seg.sum())
+    if total == 0:
+        return None
+    # piece of every position, then its offset t inside the piece
+    pid = torch.repeat_interleave(seg, output_size=total)
+    t = torch.arange(total, device=dev) - (torch.cumsum(seg, 0) - seg)[pid]
+
+    def col(x, last):
+        """Piece column x with the separator's value, at every position."""
+        x = torch.cat([x, torch.full_like(x[:, :1], last)], dim=1)
+        return x.reshape(-1)[pid]
+
+    rc = col(prc, False)
+    src = col(psrc, 0) + torch.where(rc, -t, t)
+    del t
+    base = flat[src.clamp_(0, flat.numel() - 1)]
+    base = torch.where(rc & (base < 4), 3 - base, base)
+    const = col(pconst, 4)
+    width = -(-total // 32) * 32
+    codes = torch.full((1, width), 4, dtype=torch.uint8, device=dev)
+    codes[0, :total] = torch.where(const >= 0, const, base)
+    return Layout(codes, pid // (P + 1), total)
+
+
+def kmerize_layout(lay: Layout | None, vals: torch.Tensor, k: int,
+                   device) -> KmerTable:
+    """Canonical k-mers of a layout's sequences, value = MAX over
+    occurrences of vals[s] of the sequence s holding them (the saveContig
+    and mergeContig rule, graph.h:1760-1765, counter.h:511-593).
+
+    A window that crosses a separator is invalid, so the whole set is one
+    kmer_extract pass. This gives the same (key, max value) set as the
+    JAX package's fixed-width segment rows (assemble_core.py:644-710)."""
+    if lay is None:
+        return empty_table(k, device)
+    words, nmask = pack_codes(lay.codes)
+    keys, _n_valid = extract_kmers_packed(words, k, nmask=nmask,
+                                          max_len=lay.total)
+    keys = keys[0]
+    idx = torch.nonzero(~is_sentinel(keys))[:, 0]
+    uk, uv, _n = cnt.dedup_max(keys[idx], vals[lay.seq_of[idx]])
+    return KmerTable(k, uk, uv)
 
 
 def _ext_probe(dbg: DBG, diff: int):
     """assemble_core.py:500 _ext_probe_kernel: per-unitig junction and
-    far-side probes (graph.h:1678-1751 walks) as device gathers; returns
-    host arrays."""
+    far-side probes (graph.h:1678-1751 walks) as device gathers. Returns
+    device tensors (U,): for the left end then the right, (has junction
+    base, junction base, far bases taken, far unitig stored in the same
+    orientation, far unitig id clamped to 0..U-1)."""
     si, so, _out, od, isj = dbg.topo
     lab = dbg.label_unitigs_device()
     n = dbg.n
@@ -326,105 +374,57 @@ def _ext_probe(dbg: DBG, diff: int):
         t2 = lab.utail[uid2]
         same = ((t2 >> 1) == fn) & ((t2 & 1) == (1 - fo))
         out += [has, jb, ex, same, uid2]
-    return [x.cpu().numpy() for x in out]
+    return out
 
 
-def extended_unitig_sequences_flat(dbg: DBG, diff: int):
-    """Unitig sequences extended through their end junctions by up to diff
-    bases of the far unitig (assemble_core.py:566): device probes, host
-    ragged fills over one flat buffer. Returns (flat uint8, offs (U,),
-    lens (U,), ucov (U,) uint32)."""
-    lab = dbg.label_unitigs_device()
-    U = lab.num_u
-    if U == 0:
-        return (np.zeros(0, np.uint8), np.zeros(0, np.int64),
-                np.zeros(0, np.int64), np.zeros(0, np.uint32))
-    flat, offs, base_lens = dbg.unitig_sequences_flat()
-    (hasL, jbL, exL, sameL, uid2L,
-     hasR, jbR, exR, sameR, uid2R) = _ext_probe(dbg, diff)
-    ucov = lab.ucov.cpu().numpy().astype(np.uint32)
-    jbL = jbL.astype(np.uint8)
-    jbR = jbR.astype(np.uint8)
+def extended_unitig_layout(dbg: DBG, next_k: int) -> Layout | None:
+    """Unitig sequences extended through their end junctions by up to
+    diff = next_k - k bases of the far unitig (assemble_core.py:566), laid
+    out for kmerize straight from the device flat of
+    unitig_sequences_flat_device. Each unitig is five pieces: far-left
+    part, left junction base, its own bases, right junction base,
+    far-right part."""
+    flat, offs, base_lens = dbg.unitig_sequences_flat_device()
     k = dbg.k
-
-    hL = hasL.astype(np.int64)
-    hR = hasR.astype(np.int64)
-    ext_lens = exL + hL + base_lens + hR + exR
-    ext_offs = np.zeros(U, np.int64)
-    ext_offs[1:] = np.cumsum(ext_lens)[:-1]
-    out = np.empty(int(ext_lens.sum()), np.uint8)
-
-    o2L = offs[np.clip(uid2L, 0, U - 1)]
-    l2L = base_lens[np.clip(uid2L, 0, U - 1)]
+    (hasL, jbL, exL, sameL, uid2L,
+     hasR, jbR, exR, sameR, uid2R) = _ext_probe(dbg, next_k - k)
+    o2L, l2L = offs[uid2L], base_lens[uid2L]
+    o2R, l2R = offs[uid2R], base_lens[uid2R]
     # left far part: s2[len2-(k-1)-ex : len2-(k-1)] when the stored
     # orientation already ends at (fn, 1-fo); else the reverse complement
     # of s2[(k-1) : (k-1)+ex]
-    _ragged_fill(out, ext_offs, np.where(sameL, exL, 0),
-                 flat, o2L + l2L - (k - 1) - exL)
-    _ragged_fill(out, ext_offs, np.where(~sameL, exL, 0),
-                 flat, o2L + (k - 1) + exL - 1, step=-1, comp=True)
-    posL = ext_offs + exL
-    out[posL[hasL]] = jbL[hasL]
-    mid = ext_offs + exL + hL
-    _ragged_fill(out, mid, base_lens, flat, offs)
-    posR = mid + base_lens
-    out[posR[hasR]] = jbR[hasR]
-    o2R = offs[np.clip(uid2R, 0, U - 1)]
-    l2R = base_lens[np.clip(uid2R, 0, U - 1)]
-    startR = posR + hR
-    _ragged_fill(out, startR, np.where(sameR, exR, 0),
-                 flat, o2R + l2R - k, step=-1, comp=True)
-    _ragged_fill(out, startR, np.where(~sameR, exR, 0),
-                 flat, o2R + (k - 1))
-    return out, ext_offs, ext_lens, ucov
-
-
-def kmerize_sequences(flat: np.ndarray, offs: np.ndarray, lens: np.ndarray,
-                      vals: np.ndarray, k: int, device) -> KmerTable:
-    """Canonical k-mers of many sequences, value = MAX over occurrences of
-    the value of the sequence holding them (the saveContig and
-    mergeContig rule, graph.h:1760-1765, counter.h:511-593).
-
-    The sequences are laid end to end with one N between neighbours, so a
-    window that crosses a boundary is invalid, and the whole set is one
-    kmer_extract pass. This gives the same (key, max value) set as the
-    JAX package's fixed-width segment rows (assemble_core.py:644-710)."""
-    lens = np.asarray(lens, np.int64)
-    sel = np.flatnonzero(lens >= k)
-    if len(sel) == 0:
-        return empty_table(k, device)
-    ln = lens[sel]
-    starts = np.cumsum(ln + 1) - (ln + 1)
-    total = int((ln + 1).sum())
-    width = -(-total // 32) * 32
-    buf = np.full(width, 4, dtype=np.uint8)
-    _ragged_fill(buf, starts, ln, flat, np.asarray(offs, np.int64)[sel])
-    codes = torch.from_numpy(buf[None, :]).to(device)
-    words, nmask = pack_codes(codes)
-    keys, _n_valid = extract_kmers_packed(words, k, nmask=nmask, max_len=total)
-    keys = keys[0]
-    pos = torch.arange(keys.shape[0], device=device)
-    seq_of = torch.searchsorted(torch.from_numpy(starts).to(device), pos,
-                                right=True) - 1
-    v = torch.from_numpy(np.asarray(vals, np.int64)[sel]).to(device)[seq_of]
-    valid = ~is_sentinel(keys)
-    uk, uv, _n = cnt.dedup_max(keys[valid], v[valid])
-    return KmerTable(k, uk, uv)
+    srcL = torch.where(sameL, o2L + l2L - (k - 1) - exL,
+                       o2L + (k - 1) + exL - 1)
+    # right far part: the reverse complement of s2[len2-(k-1)-ex :
+    # len2-(k-1)] when the stored orientation ends at the junction; else
+    # s2[(k-1) : (k-1)+ex]
+    srcR = torch.where(sameR, o2R + l2R - k, o2R + (k - 1))
+    zero = torch.zeros_like(offs)
+    gather = torch.full_like(offs, -1)
+    fwd = torch.zeros_like(sameL)
+    plen = torch.stack([exL, hasL.to(torch.int64), base_lens,
+                        hasR.to(torch.int64), exR], dim=1)
+    psrc = torch.stack([srcL, zero, offs, zero, srcR], dim=1)
+    prc = torch.stack([~sameL, fwd, fwd, fwd, sameR], dim=1)
+    pconst = torch.stack([gather, jbL, gather, jbR, gather], dim=1)
+    return lay_out_sequences(flat, plen, psrc, prc, pconst, next_k)
 
 
 def save_contig_next_k(dbg: DBG, next_k: int, occurrence_ratio: float) -> KmerTable:
     """Contig-derived next-k occurrence table (graph.h:1655-1771): all
     next_k-mers of the extended unitig sequences, occurrence =
-    u16(cov * ratio + 0.5), max-merged across unitigs."""
-    diff = next_k - dbg.k
+    u16(cov * ratio + 0.5), max-merged across unitigs. Nothing of genome
+    size leaves the device."""
     with LOG.stage("    unitig sequences"):
-        flat_ext, ext_offs, ext_lens, ucov = \
-            extended_unitig_sequences_flat(dbg, diff)
-    occs = np.minimum((ucov * occurrence_ratio + 0.5).astype(np.uint32),
-                      cnt.MAX_OCCURRENCE)
+        lab = dbg.label_unitigs_device()
+        lay = extended_unitig_layout(dbg, next_k) if lab.num_u else None
+        LOG.count("sequences", lab.num_u)
+        LOG.count("bases", lay.total if lay else 0)
+    # numpy's uint32 * float -> float64 -> uint32 truncation
+    occs = (lab.ucov.to(torch.float64) * occurrence_ratio + 0.5).to(
+        torch.int64).clamp(max=cnt.MAX_OCCURRENCE)
     with LOG.stage("    kmerize"):
-        return kmerize_sequences(flat_ext, ext_offs, ext_lens, occs, next_k,
-                                 dbg.device)
+        return kmerize_layout(lay, occs, next_k, dbg.device)
 
 
 def edge_kmer_keys(dbg: DBG, next_k: int):
@@ -788,15 +788,20 @@ def average_coverage_excluding_outlier(lengths, coverages) -> float:
 def count_from_contigs(seqs, covs, k: int, min_occurrence: int,
                        device) -> KmerTable:
     """Canonical k-mers of all contigs; value = MAX over sources of
-    max(coverage, min_occurrence) (merge_cmd.py:90)."""
+    max(coverage, min_occurrence) (merge_cmd.py:90). The concatenation
+    goes to the device once and is laid out there."""
     lens = np.array([len(s) for s in seqs], dtype=np.int64)
     if not (lens >= k).any():
         return empty_table(k, device)
-    offs = np.cumsum(lens) - lens
-    flat = np.concatenate([np.asarray(s, np.uint8) for s in seqs])
-    vals = np.array([min(max(int(c), min_occurrence), cnt.MAX_OCCURRENCE)
-                     for c in covs], dtype=np.int64)
-    return kmerize_sequences(flat, offs, lens, vals, k, device)
+    flat = torch.from_numpy(
+        np.concatenate([np.asarray(s, np.uint8) for s in seqs])).to(device)
+    vals = torch.tensor([min(max(int(c), min_occurrence), cnt.MAX_OCCURRENCE)
+                         for c in covs], dtype=torch.int64, device=device)
+    plen = torch.from_numpy(lens.reshape(-1, 1)).to(device)
+    psrc = torch.cumsum(plen, 0) - plen
+    lay = lay_out_sequences(flat, plen, psrc, plen < 0,
+                            torch.full_like(plen, -1), k)
+    return kmerize_layout(lay, vals, k, device)
 
 
 def assemble_repeat(batches: list[ReadBatch], opts: AssembleOptions,

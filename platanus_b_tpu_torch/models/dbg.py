@@ -340,27 +340,30 @@ class DBG:
         lab = self.label_unitigs_device()
         k = self.k
         dev = self.device
+        U = lab.num_u
         lens = lab.ulen + (k - 1)
         offs = torch.cumsum(lens, dim=0) - lens
-        total = int(lens.sum()) if lab.num_u else 0
-        flat = torch.full((total,), 4, dtype=torch.uint8, device=dev)
-        if lab.num_u == 0:
-            return flat, offs, lens
+        if U == 0:
+            return (torch.zeros(0, dtype=torch.uint8, device=dev), offs,
+                    lens)
+        total = int(lens.sum())
         W = num_words(k)
-        member = torch.nonzero(lab.uid >= 0)[:, 0]
-        words = lanes_to_words(self.keys[member], W)
-        fwd = (lab.uorient[member] == 0)[:, None]
-        owords = torch.where(fwd, words, revcomp_words(words, k))
-        uid_m = lab.uid[member]
-        flat[offs[uid_m] + lab.upos[member] + (k - 1)] = \
+        words = lanes_to_words(self.keys, W)
+        owords = torch.where((lab.uorient == 0)[:, None], words,
+                             revcomp_words(words, k))
+        member = lab.uid >= 0
+        uid_c = lab.uid.clamp(min=0)
+        # every node writes; a node of no unitig writes to a spare last slot
+        flat = torch.full((total + 1,), 4, dtype=torch.uint8, device=dev)
+        flat[torch.where(member, offs[uid_c] + lab.upos + (k - 1), total)] = \
             (owords[:, W - 1] & 3).to(torch.uint8)
-        head = lab.upos[member] == 0
-        hn = torch.empty(lab.num_u, dtype=torch.int64, device=dev)
-        hn[uid_m[head]] = torch.nonzero(head)[:, 0]
+        hn = torch.zeros(U + 1, dtype=torch.int64, device=dev)
+        hn = hn.scatter_(0, torch.where(member & (lab.upos == 0), uid_c, U),
+                         torch.arange(self.n, device=dev))[:U]
         head_codes = kmer_to_codes(words_to_lanes(owords[hn]), k)[:, : k - 1]
         hpos = offs[:, None] + torch.arange(k - 1, device=dev)[None, :]
         flat[hpos.reshape(-1)] = head_codes.reshape(-1)
-        return flat, offs, lens
+        return flat[:total], offs, lens
 
     def unitig_sequences_flat(self):
         """Host form of unitig_sequences_flat_device (numpy)."""

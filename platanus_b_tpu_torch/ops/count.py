@@ -64,8 +64,8 @@ def dedup_max(sorted_keys: torch.Tensor, sorted_vals: torch.Tensor):
     perm = lexsort(sorted_keys, -vals)
     rkeys, rvals = sorted_keys[perm], vals[perm]
     _v, r_is_new, _e = _run_marks(rkeys)
-    ukeys = rkeys[r_is_new]
-    return ukeys, rvals[r_is_new], int(ukeys.shape[0])
+    first = torch.nonzero(r_is_new)[:, 0]
+    return rkeys[first], rvals[first], int(first.shape[0])
 
 
 def sort_dedup_sum(keys: torch.Tensor, counts: torch.Tensor):

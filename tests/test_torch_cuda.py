@@ -742,6 +742,47 @@ def test_search_wrappers_do_not_sync(dev):
     assert all(x.is_cuda for x in (idx, idx1, lo, hi, hit, csum))
 
 
+# synchronizing calls of one save_contig_next_k on a labeled graph: the
+# unitig sequences' length, the layout's length, the valid windows'
+# compaction and dedup_max's run heads
+SAVE_CONTIG_SYNCS = 4
+
+
+def test_save_contig_next_k_on_card_is_the_cpu_table(dev):
+    """The next-k contig table of a 60 kbp graph with junctions, laid out
+    on the card, equals the CPU's; on an already-labeled graph it makes
+    SAVE_CONTIG_SYNCS synchronizing calls, whatever the genome's size."""
+    import warnings
+
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models import assemble_core as tcore
+    rng = np.random.default_rng(60)
+    genome = simdata.random_genome(rng, 60_000)
+    reads = simdata.shotgun_reads(rng, genome, 100, 30.0, error_rate=0.005)
+    table, _h = tcore.count_reads(tcore.stage_reads([pack_reads(reads)], dev),
+                                  32)
+    g = tcore.build_dbg_from_table(table, 2)
+    cpu = tcore.build_dbg_from_table(
+        tcore.KmerTable(32, table.keys.cpu(), table.counts.cpu()), 2)
+    assert g.topo[4].any()
+    want = tcore.save_contig_next_k(cpu, 42, 0.917)
+    g.label_unitigs_device()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = tcore.save_contig_next_k(g, 42, 0.917)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == SAVE_CONTIG_SYNCS, syncs
+    assert got.keys.is_cuda and len(want) > 50_000
+    assert torch.equal(got.keys.cpu(), want.keys)
+    assert torch.equal(got.counts.cpu(), want.counts)
+
+
 # K7: (uid, counts, num_u) of each case; "long_300k" is one unitig of
 # 300,000 nodes with counts 60-99 summing to 23,849,980 (exact mean
 # 79.49993, the float32 sum's mean 79.5002: ucov 80, the exact 79)
