@@ -25,10 +25,15 @@ seed (all of the window's jobs ran the configuration's fixed reads):
   least COV_MIN_BP bases (over all records where none is that long);
 - upstream_set_off: where the configuration records the C++ Platanus_B
   v1.3.2's output for the mix's dataset (`upstream`), 1 if the sorted set
-  of the records' canonical sequences differs from it (sha256), else 0.
-All but mismatch_per_10kbp, size_gap_pct and cov_gap_pct are exact
-(limit 0); those three are limited by the configuration (`limits`), from
-sound runs and the controls (PERF.md).
+  of the records' canonical sequences differs from it (sha256), else 0;
+- repeat_kmers_absent_pct: where the configuration plants repeat
+  families (`repeats`), the share of the distinct canonical k-mers of the
+  planted copies, as they lie in the genome, that no record holds: the
+  repeats that the records' total length cannot see, since a port that
+  drops them all moves size_gap_pct by their share of the genome alone.
+All but mismatch_per_10kbp, size_gap_pct, cov_gap_pct and
+repeat_kmers_absent_pct are exact (limit 0); those four are limited by
+the configuration (`limits`), from sound runs and the controls (PERF.md).
 """
 
 from __future__ import annotations
@@ -36,12 +41,14 @@ from __future__ import annotations
 import hashlib
 import re
 
+from . import gen
 from . import reference as ref
 
 EXACT = ("failed_jobs", "jobs_unlike_first", "frq_rows_off", "unread_kmers",
          "header_off", "upstream_set_off")
 JUDGED = ("frq_rows_off", "unread_kmers", "header_off", "mismatch_per_10kbp",
           "size_gap_pct", "cov_gap_pct")
+REPEAT = "repeat_kmers_absent_pct"
 COV_MIN_BP = 1000
 HEADER = re.compile(rb"^(seq|junction)(\d+)_len(\d+)_cov(\d+)_read([0-9.]+)"
                     rb"_maxK(\d+)$")
@@ -107,6 +114,11 @@ def sorted_set_sha256(seqs: list[bytes]) -> str:
     return hashlib.sha256(b"\n".join(canon)).hexdigest()
 
 
+def judged_names(inputs) -> tuple:
+    """The numbers `judge` reads from one job's outputs on `inputs`."""
+    return JUDGED + ((REPEAT,) if inputs.plan.copies else ())
+
+
 def judge(files: dict, inputs, k: int, device,
           upstream: str | None = None) -> tuple[dict, dict]:
     """(numbers, what the reference found) of one job's outputs: `files`
@@ -132,10 +144,18 @@ def judge(files: dict, inputs, k: int, device,
                "size_gap_pct": 100.0 * abs(total - len(genome)) / len(genome),
                "cov_gap_pct": cov_gap_pct(recs, ref.record_coverage(
                    seqs, keys, counts, k, read_len))}
+    if inputs.plan.copies:
+        copies = [gen.BASES[c].tobytes()
+                  for c in inputs.plan.sequences(inputs.genome)]
+        numbers[REPEAT] = ref.absent_share(
+            ref.distinct_kmers(copies, k, device),
+            ref.distinct_kmers(seqs, k, device))
     if upstream is not None:
         numbers["upstream_set_off"] = int(sorted_set_sha256(seqs) != upstream)
     info = {"ks": ks, "cutoff": max(ref.left_local_minimum(dist) // 2, 2),
-            "records": len(recs), "record_bp": total, "mismatches": mism}
+            "records": len(recs), "junctions": sum(
+                n.startswith(b"junction") for n, _s in recs),
+            "record_bp": total, "mismatches": mism}
     return numbers, info
 
 

@@ -84,10 +84,14 @@ def cell(bench: dict, workload: str) -> Cell:
     if not found:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     w = found[0]
+    config = load_json(config_file(w["config"]))
+    if config.get("repeats") and check.REPEAT not in config["limits"]:
+        raise SystemExit(f"configuration {w['config']!r} plants repeats and "
+                         f"has no limit for {check.REPEAT}")
 
     def here(m):
         return "workloads" not in m or workload in m["workloads"]
-    return Cell(workload, int(w["chips"]), load_json(config_file(w["config"])),
+    return Cell(workload, int(w["chips"]), config,
                 load_json(mix_file(w["traffic"])), w["traffic"],
                 [m for m in bench["end_to_end"] if here(m)],
                 [m for m in bench["per_layer"] if here(m)])
@@ -100,10 +104,20 @@ class Inputs:
     genome: np.ndarray
     reads: np.ndarray
     path: str
+    plan: gen.Plan = field(default_factory=gen.Plan)
 
     @property
     def genome_text(self) -> bytes:
         return gen.BASES[self.genome].tobytes()
+
+
+def dataset(config: dict, mix: dict, seed: int):
+    """(genome, reads, plan): the configuration's genome drawn from `seed`
+    with its `repeats` families planted (none where it has no such key),
+    and the mix's reads of it."""
+    return gen.simulate_planted(config["genome_bp"], mix["read_len"],
+                                mix["coverage"], mix["error"], seed,
+                                config.get("repeats", ()))
 
 
 def make_inputs(config: dict, mix: dict, seed: int, work: str) -> Inputs:
@@ -111,23 +125,20 @@ def make_inputs(config: dict, mix: dict, seed: int, work: str) -> Inputs:
     reads, both from the configuration's dataset seed, written in an order
     drawn from `seed`. Every seed gives the window the same work (the
     outputs do not depend on the order)."""
-    genome, reads = gen.simulate(config["genome_bp"], mix["read_len"],
-                                 mix["coverage"], mix["error"],
-                                 config["dataset_seed"])
+    genome, reads, plan = dataset(config, mix, config["dataset_seed"])
     path = os.path.join(work, "reads.fa")
     gen.write_fasta(path, reads[gen.rng_of(seed).permutation(len(reads))])
-    return Inputs(genome, reads, path)
+    return Inputs(genome, reads, path, plan)
 
 
 def seed_inputs(config: dict, mix: dict, seed: int, work: str) -> Inputs:
-    """The checked job's inputs: a genome of the configuration's size and
-    the mix's reads of it, both drawn from the run's seed, so that each
-    seed's check reads a dataset of its own."""
-    genome, reads = gen.simulate(config["genome_bp"], mix["read_len"],
-                                 mix["coverage"], mix["error"], seed)
+    """The checked job's inputs: a genome of the configuration's size, with
+    a repeat layout of its own, and the mix's reads of it, all drawn from
+    the run's seed, so that each seed's check reads a dataset of its own."""
+    genome, reads, plan = dataset(config, mix, seed)
     path = os.path.join(work, "seed_reads.fa")
     gen.write_fasta(path, reads)
-    return Inputs(genome, reads, path)
+    return Inputs(genome, reads, path, plan)
 
 
 def job_argv(mix: dict, reads: str, prefix: str) -> list[str]:
@@ -481,7 +492,7 @@ def run_cell(c: Cell, seed: int, seconds: float, trace: bool, device: str,
         except (OSError, ValueError, KeyError) as e:
             print(f"check: the {label} job's outputs could not be read: "
                   f"{e!r}", file=log)
-            judged = dict.fromkeys(check.JUDGED)
+            judged = dict.fromkeys(check.judged_names(inp))
         numbers = check.worst(numbers, judged)
     correct, checks = check.verdict(numbers, c.config["limits"])
     print(f"the check took {time.perf_counter() - t_check:.3f} s (the "

@@ -17,7 +17,11 @@ files only to judge them (`check.py`).
   that distribution and the mean read length: the `maxK` every header
   must carry.
 - `GenomeIndex`: each contig's best placement on the genome or its reverse
-  complement, by exact anchors, and its mismatches there.
+  complement, by exact anchors at every genome occurrence (a repeat's
+  copies each), and its mismatches there.
+- `distinct_kmers`, `absent_share`: the share of one set of sequences'
+  canonical k-mers (a genome's planted repeat copies) that another (the
+  contigs) lacks.
 """
 
 from __future__ import annotations
@@ -91,33 +95,65 @@ def _forward_keys(windows: np.ndarray) -> np.ndarray:
     return keys
 
 
-def _window_counts(seqs: list[bytes], table_keys: torch.Tensor,
-                   table_counts: torch.Tensor, k: int):
-    """(count in the table of each k-window of `seqs` (ACGT text), 0 where
-    absent; whether the window holds a base other than ACGT; the record
-    each window lies in), all windows of all records in one pass."""
+def _windows(seqs: list[bytes], k: int, device):
+    """(canonical key of each k-window of `seqs` (ACGT text) on `device`;
+    whether the window holds a base other than ACGT; the record each
+    window lies in), all windows of all records in one pass; None where
+    no record has a k-window."""
     codes, starts, lens = _record_codes(seqs)
     rec = np.repeat(np.arange(len(seqs)), lens)
     first = np.arange(max(len(codes) - k + 1, 0))
     first = first[first + k <= (starts + lens)[rec[first]]]
     if not len(first):
-        return (np.zeros(0, np.int64), np.zeros(0, bool),
-                np.zeros(0, np.int64))
+        return None
     bad = np.convolve((codes > 3).astype(np.int64), np.ones(k, np.int64),
                       "valid")[first] > 0
     clean = np.where(codes > 3, 0, codes).astype(np.uint8)
-    dev = table_keys.device
-    q = canonical_keys(torch.from_numpy(clean[None, :]).to(dev),
-                       k)[torch.from_numpy(first).to(dev)]
+    q = canonical_keys(torch.from_numpy(clean[None, :]).to(device),
+                       k)[torch.from_numpy(first).to(device)]
+    return q, bad, rec[first]
+
+
+def distinct_kmers(seqs: list[bytes], k: int, device) -> torch.Tensor:
+    """The sorted distinct canonical k-mers of `seqs` (ACGT text), windows
+    with a base other than ACGT left out."""
+    win = _windows(seqs, k, device)
+    if win is None:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    q, bad, _rec = win
+    return torch.unique(q[torch.from_numpy(~bad).to(device)])
+
+
+def absent_share(want: torch.Tensor, have: torch.Tensor) -> float | None:
+    """The share (%) of the distinct keys `want` not among the sorted
+    distinct keys `have`; None where `want` is empty."""
+    if not want.numel():
+        return None
+    if not have.numel():
+        return 100.0
+    pos = torch.searchsorted(have, want).clamp(max=have.numel() - 1)
+    return 100.0 * int((have[pos] != want).sum()) / want.numel()
+
+
+def _window_counts(seqs: list[bytes], table_keys: torch.Tensor,
+                   table_counts: torch.Tensor, k: int):
+    """(count in the table of each k-window of `seqs` (ACGT text), 0 where
+    absent; whether the window holds a base other than ACGT; the record
+    each window lies in), all windows of all records in one pass."""
+    win = _windows(seqs, k, table_keys.device)
+    if win is None:
+        return (np.zeros(0, np.int64), np.zeros(0, bool),
+                np.zeros(0, np.int64))
+    q, bad, rec = win
     if table_keys.numel():
         pos = torch.searchsorted(table_keys, q).clamp(max=table_keys.numel() - 1)
         found = (table_keys[pos] == q).cpu().numpy()
         count = table_counts[pos].cpu().numpy().astype(np.int64)
     else:
-        found = np.zeros(len(first), bool)
-        count = np.zeros(len(first), np.int64)
+        found = np.zeros(len(rec), bool)
+        count = np.zeros(len(rec), np.int64)
     count = np.where(found & ~bad, count, 0)
-    return count, bad | ~found, rec[first]
+    return count, bad | ~found, rec
 
 
 def absent_kmers(seqs: list[bytes], table_keys: torch.Tensor,
@@ -227,8 +263,17 @@ def revcomp(seq: bytes) -> bytes:
 
 class GenomeIndex:
     """Every k-window of the genome, keyed on both strands, for placing
-    records by exact anchors (a genome without repeats at k has one
-    position a key)."""
+    records by exact anchors. A genome without repeats at k has one
+    position a key; a planted repeat family has one a copy that the
+    window's bases hold unchanged."""
+
+    # Occurrences tried per anchor, the first in genome order. A record
+    # of a repeat has to be tried on every copy, since the copies differ
+    # by their divergence and only one of them may be its source; the
+    # configurations plant at most tens of copies of a family, and the
+    # cap keeps a key that repeats by chance in low-complexity sequence
+    # from multiplying the work of every record that holds it.
+    MAX_OCCURRENCES = 64
 
     def __init__(self, genome: bytes, k: int = 32):
         self.k, self.genome, self.genome_rc = k, genome, revcomp(genome)
@@ -241,14 +286,21 @@ class GenomeIndex:
         self.rev_order = np.argsort(rev, kind="stable")
         self.rev = rev[self.rev_order]
 
-    def _find(self, keys, table, order):
-        pos = np.searchsorted(table, keys).clip(max=len(table) - 1)
-        return np.where(table[pos] == keys, order[pos], -1)
+    def _find_all(self, keys, table, order):
+        """(index into `keys`, genome position) of every occurrence of each
+        key in `table`, at most MAX_OCCURRENCES a key."""
+        lo = np.searchsorted(table, keys, "left")
+        n = np.minimum(np.searchsorted(table, keys, "right") - lo,
+                       self.MAX_OCCURRENCES)
+        which = np.repeat(np.arange(len(keys)), n)
+        within = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        return which, order[lo[which] + within]
 
     def mismatches(self, seqs: list[bytes]) -> list[int | None]:
         """For each record, the fewest mismatches over the placements that
-        one of its exact anchors (first, last and three between) puts on
-        the genome or its reverse complement; None where none is found."""
+        its exact anchors (first, last and three between) put on the
+        genome or its reverse complement, at every occurrence of each
+        anchor (up to MAX_OCCURRENCES); None where none is found."""
         k, G = self.k, len(self.genome)
         codes, starts, lens = _record_codes(seqs)
         out: list[int | None] = [None] * len(seqs)
@@ -266,16 +318,15 @@ class GenomeIndex:
             win = codes[idx[:, None] + np.arange(k)[None, :]]
             ok = (win <= 3).all(axis=1)
             keys = _forward_keys(np.where(win > 3, 0, win))
-            plus = self._find(keys, self.fwd, self.fwd_order)
-            minus = self._find(keys, self.rev, self.rev_order)
             cands: dict[int, set] = {}
-            for r, off, p, m, good in zip(rows, offs, plus, minus, ok):
-                if not good:
-                    continue
-                if p >= 0:
-                    cands.setdefault(int(r), set()).add((0, int(p - off)))
-                if m >= 0:
-                    cands.setdefault(int(r), set()).add((1, int(G - m - k - off)))
+            for strand, table, order in ((0, self.fwd, self.fwd_order),
+                                         (1, self.rev, self.rev_order)):
+                which, pos = self._find_all(keys, table, order)
+                good = ok[which]
+                place = (pos - offs[which] if strand == 0
+                         else G - pos - k - offs[which])
+                for r, p in zip(rows[which][good], place[good]):
+                    cands.setdefault(int(r), set()).add((strand, int(p)))
             for r, places in cands.items():
                 s = np.frombuffer(seqs[r], np.uint8)
                 n = len(s)

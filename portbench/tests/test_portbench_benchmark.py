@@ -69,8 +69,10 @@ def test_config_file(cfg):
     data = harness.load_json(os.path.join(harness.ROOT, cfg["file"]))
     assert data["name"] == cfg["name"] and data["reduced"] == cfg["reduced"]
     assert cfg["file"] == f"portbench/configs/{cfg['name']}.json"
+    # a configuration that plants repeat families limits their k-mers too
+    repeats = {"repeat_kmers_absent_pct"} if data.get("repeats") else set()
     assert set(data["limits"]) == {"mismatch_per_10kbp", "size_gap_pct",
-                                   "cov_gap_pct"}
+                                   "cov_gap_pct"} | repeats
 
 
 def test_no_result_without_the_card(tmp_path):

@@ -5,6 +5,7 @@ timed path, make it false."""
 
 import contextlib
 import copy
+import json
 import os
 
 import numpy as np
@@ -162,9 +163,11 @@ def test_control_fails(tmp_path, name):
 
 
 @pytest.mark.cuda
-def test_traced_run_on_the_card(tmp_path):
+def test_traced_run_on_the_card(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # conftest.py puts the port on the CPU for the other tests
+    monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cuda")
     import time
     work = str(tmp_path / "work")
     os.makedirs(work)
@@ -177,3 +180,86 @@ def test_traced_run_on_the_card(tmp_path):
     assert 0 < r["device"]["busy_s"] < r["device"]["window_s"]
     with contextlib.suppress(KeyError):
         assert len(r["breakdown"]["device_ops"]) <= 10
+
+
+# two families on a genome of 150 kbp: exact rRNA-like copies and
+# IS-like ones at 1 % divergence, half of each reverse-complemented
+REPEATS = [
+    {"name": "rrn", "copies": 3, "length": 1_500, "divergence": 0.0,
+     "reverse_share": 0.5},
+    {"name": "IS", "copies": 4, "length": 700, "divergence": 0.01,
+     "reverse_share": 0.5}]
+
+
+def repeat_cell():
+    c = small_cell(genome_bp=150_000)
+    c.config = dict(c.config, repeats=REPEATS, limits=dict(
+        c.config["limits"], repeat_kmers_absent_pct=5.0))
+    return c
+
+
+def drop_repeats(orig):
+    def contigs_of(dbg, ratio):
+        contigs, covs = orig(dbg, ratio)
+        keep = np.asarray(covs) <= 2 * np.median(covs)
+        return ([s for s, ok in zip(contigs, keep) if ok],
+                [v for v, ok in zip(covs, keep) if ok])
+    return contigs_of
+
+
+def test_record_of_a_divergent_copy_reads_no_mismatch():
+    # a record cut from copy 3 of a family at 1 % divergence lies exactly
+    # on that copy, whichever copy its anchors find first in the index
+    from portbench import gen
+    from portbench import reference as ref
+    genome, _reads, plan = gen.simulate_planted(
+        100_000, 125, 1, 0.003, 5, [dict(REPEATS[1], copies=5, length=1_500)])
+    text = gen.BASES[genome].tobytes()
+    c = plan.copies[3]
+    piece = text[c.start + 200: c.start + 900]
+    recs = [piece, ref.revcomp(piece), text[c.start: c.start + c.length]]
+    assert ref.GenomeIndex(text).mismatches(recs) == [0, 0, 0]
+
+
+def test_absent_share_of_repeat_kmers():
+    import torch
+
+    from portbench import reference as ref
+    a = ref.distinct_kmers([b"ACGTTGCA" * 8, b"A" * 40], 32, "cpu")
+    b = ref.distinct_kmers([b"ACGTTGCA" * 8], 32, "cpu")
+    assert ref.absent_share(a, b) == pytest.approx(100.0 / a.numel())
+    assert ref.absent_share(a, a) == 0.0
+    assert ref.absent_share(a, torch.zeros(0, dtype=torch.int64)) == 100.0
+    assert ref.distinct_kmers([b"ACGTN" * 10], 32, "cpu").numel() == 0
+
+
+def test_sound_run_on_a_repeat_genome_is_correct(tmp_path):
+    r = run(tmp_path, cell=repeat_cell())
+    assert r["correct"] and not failing(r)
+    assert list(r["checks"]) == ["failed_jobs", "jobs_unlike_first",
+                                 "frq_rows_off", "unread_kmers", "header_off",
+                                 "mismatch_per_10kbp", "size_gap_pct",
+                                 "cov_gap_pct", "repeat_kmers_absent_pct"]
+    assert r["checks"]["repeat_kmers_absent_pct"]["value"] == 0.0
+
+
+def test_repeats_dropped_is_caught(tmp_path):
+    # a fault the repeat genome's cells can have: every record at more
+    # than twice the median coverage left out of the contig file
+    r = run(tmp_path, cell=repeat_cell(), plant=lambda inputs: harness.patched(
+        "platanus_b_tpu_torch.models.assemble_core:_contigs_of", drop_repeats))
+    assert not r["correct"]
+    assert "repeat_kmers_absent_pct" in failing(r), r["checks"]
+
+
+def test_repeats_need_their_limit(tmp_path, monkeypatch):
+    cfg = dict(repeat_cell().config)
+    del cfg["limits"]["repeat_kmers_absent_pct"]
+    (tmp_path / "rep.json").write_text(json.dumps(cfg))
+    monkeypatch.setattr(harness, "config_file",
+                        lambda name: str(tmp_path / f"{name}.json"))
+    bench = {"workloads": [{"name": "w", "config": "rep",
+                            "traffic": "reads125-40x", "chips": 1}],
+             "end_to_end": [], "per_layer": []}
+    with pytest.raises(SystemExit):
+        harness.cell(bench, "w")
