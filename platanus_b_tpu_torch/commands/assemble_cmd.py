@@ -134,11 +134,14 @@ def write_outputs(args, result) -> None:
         return
 
     out = f"{args.o}_contig.fa"
-    fa.write_contigs(out, result.contigs, result.contig_covs, 1.0,
-                     result.average_length, result.max_k, prefix="seq")
-    fa.write_contigs(out, result.junctions, result.junction_covs, 1.0,
-                     result.average_length, result.max_k, prefix="junction",
-                     append=True)
+    n_seq = fa.write_contigs(out, result.contigs, result.contig_covs, 1.0,
+                             result.average_length, result.max_k,
+                             prefix="seq")
+    n_junction = fa.write_contigs(out, result.junctions, result.junction_covs,
+                                  1.0, result.average_length, result.max_k,
+                                  prefix="junction", append=True)
+    LOG.count("records", n_seq + n_junction)
+    LOG.count("junctions", n_junction)
     if result.bubbles:
         fa.write_contigs(f"{args.o}_contigBubble.fa",
                          [b.seq for b in result.bubbles],

@@ -190,59 +190,71 @@ def crush_bubble(dbg: DBG, average_coverage: float,
     distance (max_len + k - 1) * bubble_threshold + 0.5 are clustered; the
     max-coverage member of each cluster survives and absorbs the others'
     coverage. The edit distances run as one batch on the graph's device
-    (the edit_distance kernel on CUDA)."""
+    (the edit_distance kernel on CUDA).
+
+    Three stages time a round: `  bubble pairs` (the labeling, the
+    grouping by junction pair and the pair loop; counts `candidates`,
+    branches with a junction at both ends, and `pairs`), `  bubble align`
+    (the edit distances, where a pair needs them; count `aligned`) and
+    `  bubble merge` (the clustering, the coverage absorption and the
+    deletion; count `crushed`)."""
     k = dbg.k
-    u = dbg.label_unitigs()
-    if u.num_unitigs == 0:
-        return 0
-    ends = _unitig_ends(dbg)
-    head_j, _head_q = ends[0]
-    tail_j, _tail_q = ends[1]
+    with LOG.stage("  bubble pairs"):
+        LOG.count("candidates", 0)
+        LOG.count("pairs", 0)
+        u = dbg.label_unitigs()
+        if u.num_unitigs == 0:
+            return 0
+        ends = _unitig_ends(dbg)
+        head_j, _head_q = ends[0]
+        tail_j, _tail_q = ends[1]
 
-    both = (head_j >= 0) & (tail_j >= 0)
-    cand = np.nonzero(both)[0]
-    if len(cand) == 0:
-        return 0
+        both = (head_j >= 0) & (tail_j >= 0)
+        cand = np.nonzero(both)[0]
+        LOG.count("candidates", len(cand))
+        if len(cand) == 0:
+            return 0
 
-    cov_threshold = min(int(average_coverage * BUBBLE_COVERAGE_RATE + 0.5), 0xFFFF)
-    if average_coverage >= 0xFFFF:
-        cov_threshold = 0xFFFF
+        cov_threshold = min(int(average_coverage * BUBBLE_COVERAGE_RATE + 0.5), 0xFFFF)
+        if average_coverage >= 0xFFFF:
+            cov_threshold = 0xFFFF
 
-    # group candidate branches by unordered junction pair
-    ja = np.minimum(head_j[cand], tail_j[cand])
-    jb = np.maximum(head_j[cand], tail_j[cand])
-    order = np.lexsort((jb, ja))
-    cand = cand[order]
-    ja, jb = ja[order], jb[order]
-    grp_new = np.ones(len(cand), dtype=bool)
-    grp_new[1:] = (ja[1:] != ja[:-1]) | (jb[1:] != jb[:-1])
-    grp_id = np.cumsum(grp_new) - 1
-    grp_start = np.flatnonzero(grp_new)
-    grp_end = np.append(grp_start[1:], len(cand))
+        # group candidate branches by unordered junction pair
+        ja = np.minimum(head_j[cand], tail_j[cand])
+        jb = np.maximum(head_j[cand], tail_j[cand])
+        order = np.lexsort((jb, ja))
+        cand = cand[order]
+        ja, jb = ja[order], jb[order]
+        grp_new = np.ones(len(cand), dtype=bool)
+        grp_new[1:] = (ja[1:] != ja[:-1]) | (jb[1:] != jb[:-1])
+        grp_id = np.cumsum(grp_new) - 1
+        grp_start = np.flatnonzero(grp_new)
+        grp_end = np.append(grp_start[1:], len(cand))
 
-    seqs, base_lens = dbg.unitig_sequences()
+        seqs, base_lens = dbg.unitig_sequences()
 
-    def branch_seq(ui):
-        # orient every branch from the smaller junction to the larger
-        s = seqs[ui, : base_lens[ui]]
-        if min(head_j[ui], tail_j[ui]) != head_j[ui]:
-            s = (3 - s[::-1]) % 5
-            s = np.where(s > 3, 4, s)
-        return s
+        def branch_seq(ui):
+            # orient every branch from the smaller junction to the larger
+            s = seqs[ui, : base_lens[ui]]
+            if min(head_j[ui], tail_j[ui]) != head_j[ui]:
+                s = (3 - s[::-1]) % 5
+                s = np.where(s > 3, 4, s)
+            return s
 
-    pairs_a, pairs_b = [], []
-    for g0, g1 in zip(grp_start, grp_end):
-        members = cand[g0:g1]
-        for x in range(len(members) - 1):
-            for y in range(x + 1, len(members)):
-                u1, u2 = members[x], members[y]
-                if int(u.ucov[u1]) + int(u.ucov[u2]) > cov_threshold:
-                    continue
-                pairs_a.append(u1)
-                pairs_b.append(u2)
-    if not pairs_a:
-        return 0
-    del grp_id
+        pairs_a, pairs_b = [], []
+        for g0, g1 in zip(grp_start, grp_end):
+            members = cand[g0:g1]
+            for x in range(len(members) - 1):
+                for y in range(x + 1, len(members)):
+                    u1, u2 = members[x], members[y]
+                    if int(u.ucov[u1]) + int(u.ucov[u2]) > cov_threshold:
+                        continue
+                    pairs_a.append(u1)
+                    pairs_b.append(u2)
+        LOG.count("pairs", len(pairs_a))
+        if not pairs_a:
+            return 0
+        del grp_id
     pairs_a = np.array(pairs_a)
     pairs_b = np.array(pairs_b)
 
@@ -259,78 +271,82 @@ def crush_bubble(dbg: DBG, average_coverage: float,
     need_align = ~short
     ok_align = np.zeros(len(pairs_a), dtype=bool)
     if need_align.any():
-        ai = np.nonzero(need_align)[0]
-        mida = [branch_seq(pairs_a[i])[k - 1: u.ulen[pairs_a[i]]] for i in ai]
-        midb = [branch_seq(pairs_b[i])[k - 1: u.ulen[pairs_b[i]]] for i in ai]
-        la = np.array([len(s) for s in mida], dtype=np.int32)
-        lb = np.array([len(s) for s in midb], dtype=np.int32)
-        A = np.zeros((len(ai), max(int(la.max()), 1)), dtype=np.uint8)
-        B = np.zeros((len(ai), max(int(lb.max()), 1)), dtype=np.uint8)
-        for r, s in enumerate(mida):
-            A[r, : len(s)] = s
-        for r, s in enumerate(midb):
-            B[r, : len(s)] = s
-        dev = dbg.device
-        dist = edit_distance_batch(torch.from_numpy(A).to(dev),
-                                   torch.from_numpy(la).to(dev),
-                                   torch.from_numpy(B).to(dev),
-                                   torch.from_numpy(lb).to(dev))
-        ok_align[ai] = dist.cpu().numpy() <= thr[ai]
+        with LOG.stage("  bubble align"):
+            ai = np.nonzero(need_align)[0]
+            LOG.count("aligned", len(ai))
+            mida = [branch_seq(pairs_a[i])[k - 1: u.ulen[pairs_a[i]]] for i in ai]
+            midb = [branch_seq(pairs_b[i])[k - 1: u.ulen[pairs_b[i]]] for i in ai]
+            la = np.array([len(s) for s in mida], dtype=np.int32)
+            lb = np.array([len(s) for s in midb], dtype=np.int32)
+            A = np.zeros((len(ai), max(int(la.max()), 1)), dtype=np.uint8)
+            B = np.zeros((len(ai), max(int(lb.max()), 1)), dtype=np.uint8)
+            for r, s in enumerate(mida):
+                A[r, : len(s)] = s
+            for r, s in enumerate(midb):
+                B[r, : len(s)] = s
+            dev = dbg.device
+            dist = edit_distance_batch(torch.from_numpy(A).to(dev),
+                                       torch.from_numpy(la).to(dev),
+                                       torch.from_numpy(B).to(dev),
+                                       torch.from_numpy(lb).to(dev))
+            ok_align[ai] = dist.cpu().numpy() <= thr[ai]
 
     ok = ok_short | ok_align
     if not ok.any():
         return 0
 
-    # union-find clustering of ok pairs
-    parent = np.arange(u.num_unitigs)
+    with LOG.stage("  bubble merge"):
+        # union-find clustering of ok pairs
+        parent = np.arange(u.num_unitigs)
 
-    def find(x):
-        while parent[x] != x:
-            parent[x] = parent[parent[x]]
-            x = parent[x]
-        return x
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
 
-    for a, b in zip(pairs_a[ok], pairs_b[ok]):
-        ra, rb = find(a), find(b)
-        if ra != rb:
-            parent[rb] = ra
+        for a, b in zip(pairs_a[ok], pairs_b[ok]):
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[rb] = ra
 
-    roots = np.array([find(x) for x in range(u.num_unitigs)])
-    clustered = np.nonzero(roots != np.arange(u.num_unitigs))[0]
-    involved = np.unique(np.concatenate([clustered, roots[clustered]]))
+        roots = np.array([find(x) for x in range(u.num_unitigs)])
+        clustered = np.nonzero(roots != np.arange(u.num_unitigs))[0]
+        involved = np.unique(np.concatenate([clustered, roots[clustered]]))
 
-    kill = np.zeros(u.num_unitigs, dtype=bool)
-    cov_add = np.zeros(u.num_unitigs, dtype=np.float64)
-    n_crush = 0
-    for r in np.unique(roots[involved]):
-        members = involved[roots[involved] == r]
-        if len(members) < 2:
-            continue
-        winner = members[np.argmax(u.ucov[members])]
-        for mbr in members:
-            if mbr == winner:
+        kill = np.zeros(u.num_unitigs, dtype=bool)
+        cov_add = np.zeros(u.num_unitigs, dtype=np.float64)
+        n_crush = 0
+        for r in np.unique(roots[involved]):
+            members = involved[roots[involved] == r]
+            if len(members) < 2:
                 continue
-            # winner absorbs: cov += cov_m * len_m / len_winner (graph.h:660)
-            cov_add[winner] += u.ucov[mbr] * u.ulen[mbr] / u.ulen[winner]
-            kill[mbr] = True
-            if crushed is not None:
-                crushed.append(CrushedBubble(
-                    seq=seqs[mbr, : base_lens[mbr]].copy(),
-                    coverage=int(u.ucov[mbr])))
-            n_crush += 1
+            winner = members[np.argmax(u.ucov[members])]
+            for mbr in members:
+                if mbr == winner:
+                    continue
+                # winner absorbs: cov += cov_m * len_m / len_winner (graph.h:660)
+                cov_add[winner] += u.ucov[mbr] * u.ulen[mbr] / u.ulen[winner]
+                kill[mbr] = True
+                if crushed is not None:
+                    crushed.append(CrushedBubble(
+                        seq=seqs[mbr, : base_lens[mbr]].copy(),
+                        coverage=int(u.ucov[mbr])))
+                n_crush += 1
 
-    if n_crush:
-        # absorbed coverage goes into the member k-mer counts so the next
-        # labeling reproduces the boosted average
-        add_per_node = np.zeros(dbg.n, dtype=np.float64)
-        sel = u.uid >= 0
-        add_per_node[sel] = cov_add[u.uid[sel]]
-        if add_per_node.any():
-            new_counts = dbg.counts.cpu().numpy().astype(np.float64) + add_per_node
-            dbg.counts = torch.from_numpy(
-                np.minimum(np.round(new_counts), 0xFFFF - 1).astype(np.int64)
-            ).to(dbg.device)
-        dbg.delete_unitigs(kill)
+        if n_crush:
+            # absorbed coverage goes into the member k-mer counts so the next
+            # labeling reproduces the boosted average
+            add_per_node = np.zeros(dbg.n, dtype=np.float64)
+            sel = u.uid >= 0
+            add_per_node[sel] = cov_add[u.uid[sel]]
+            if add_per_node.any():
+                new_counts = dbg.counts.cpu().numpy().astype(np.float64) + add_per_node
+                dbg.counts = torch.from_numpy(
+                    np.minimum(np.round(new_counts), 0xFFFF - 1).astype(np.int64)
+                ).to(dbg.device)
+            dbg.delete_unitigs(kill)
+        LOG.count("crushed", n_crush)
     return n_crush
 
 
@@ -388,11 +404,17 @@ def _bubble_unitig_mask(dbg: DBG, u) -> np.ndarray:
 def average_coverage_excluding_bubble(dbg: DBG) -> float:
     """getAverageCoverageExcludingBubble (graph.h:2375-2431):
     length-weighted mean coverage over non-bubble unitigs plus junction
-    coverages (weight 1 each)."""
+    coverages (weight 1 each). The mask runs in the stage `  bubble mask`;
+    the open stage gets the counts `unitigs` and `bubble_unitigs` (the
+    mask's)."""
     u = dbg.label_unitigs()
+    LOG.count("unitigs", u.num_unitigs)
+    LOG.count("bubble_unitigs", 0)
     if u.num_unitigs == 0:
         return 0.0
-    keep = ~_bubble_unitig_mask(dbg, u)
+    with LOG.stage("  bubble mask"):
+        keep = ~_bubble_unitig_mask(dbg, u)
+    LOG.count("bubble_unitigs", int((~keep).sum()))
     if not keep.any():
         keep = np.ones_like(keep)
     w = u.ulen[keep].astype(np.float64)

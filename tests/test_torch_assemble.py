@@ -4,6 +4,11 @@ Both CLIs run in this process on the same simulated reads — the JAX
 package through platanus_b_tpu.commands.main.main, the port through its
 own main with PLATANUS_B_TPU_TORCH_DEVICE=cpu (the kernels' plain
 versions) — and every output file must be byte-identical.
+
+The `families` cases hold them on a 60 kbp genome with repeat families
+planted (torch_families.FAMILIES) at the benchmark's flags (-k 32), and
+with a second haplotype at -u 0.1, where bubbles are crushed beside the
+repeats (at the default -u 0 no bubble is crushed).
 """
 
 import os
@@ -12,11 +17,17 @@ import numpy as np
 import pytest
 
 import simdata
+import torch_families
 from platanus_b_tpu.commands.main import main as jax_main
 from platanus_b_tpu_torch.commands.main import main as port_main
+from platanus_b_tpu_torch.utils.log import LOG
 
 
 def _reads(config):
+    if config == "families":
+        return torch_families.families_reads()
+    if config == "families_het":
+        return torch_families.families_reads(het=0.005)
     rng = np.random.default_rng(7)
     if config == "bubble":
         g = simdata.random_genome(rng, 2500)
@@ -41,6 +52,9 @@ CONFIGS = {
                       ["kmer_occ.bin", "25merFrq.tsv"]),
     "divide_straight": (["-k", "25", "-divide_straight"],
                         ["contig.fa", "25merFrq.tsv"]),
+    "families": (["-k", "32"], ["contig.fa", "32merFrq.tsv"]),
+    "families_het": (["-k", "32", "-u", "0.1"],
+                     ["contig.fa", "contigBubble.fa", "32merFrq.tsv"]),
 }
 
 
@@ -51,9 +65,20 @@ def _run_both(tmp_path, config, monkeypatch):
     monkeypatch.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cpu")
     assert jax_main(["assemble", "-f", str(reads), "-o",
                      str(tmp_path / "jax")] + flags) == 0
+    LOG.reset()
     assert port_main(["assemble", "-f", str(reads), "-o",
                       str(tmp_path / "port")] + flags) == 0
     return outputs
+
+
+def _counts(spans):
+    """{(stage name, count name): the sum over the stage's records}."""
+    out = {}
+    for s in spans:
+        for name, value in s.counters.items():
+            key = (s.name.strip(), name)
+            out[key] = out.get(key, 0) + value
+    return out
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
@@ -66,6 +91,20 @@ def test_output_files_byte_identical(tmp_path, config, monkeypatch):
         got = (tmp_path / f"port_{name}").read_bytes()
         assert len(want) > 0, name
         assert got == want, name
+    if config.startswith("families"):
+        # the repeat path: junction records, and bubbles in the graph
+        counts = _counts(LOG.spans)
+        names = (tmp_path / "jax_contig.fa").read_text().split(">")[1:]
+        junctions = sum(n.startswith("junction") for n in names)
+        assert junctions >= 10
+        assert counts[("writing outputs", "junctions")] == junctions
+        assert counts[("writing outputs", "records")] == len(names)
+        assert counts[("average coverage", "bubble_unitigs")] > 0
+        if config == "families_het":
+            assert counts[("bubble pairs", "pairs")] > 0
+            assert counts[("bubble align", "aligned")] > 0
+            assert counts[("bubble merge", "crushed")] > 0
+    LOG.reset()
 
 
 def test_missing_read_file_is_typed_error(tmp_path, monkeypatch):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import simdata
+import torch_families
 from platanus_b_tpu_torch import kernels
 from platanus_b_tpu_torch.commands.main import main as port_main
 from platanus_b_tpu_torch.models import mapper as tmapper
@@ -1024,6 +1025,30 @@ def _run_cpu_then_card(monkeypatch, argv, patch_plain):
     before = dict(kernels.LAUNCHES)
     assert port_main(argv + ["-o", "gpu"]) == 0
     return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("het", [0.0, 0.005], ids=["families", "families_het"])
+def test_families_on_card_write_the_cpu_bytes(dev, tmp_path, monkeypatch, het):
+    """`assemble -k 32` on the 60 kbp genome with repeat families
+    (torch_families.FAMILIES) on the card equals the CPU run; with a second
+    haplotype at -u 0.1 the bubbles are crushed and aligned by K1."""
+    simdata.write_fasta(tmp_path / "reads.fa",
+                        torch_families.families_reads(het=het))
+    monkeypatch.chdir(tmp_path)
+    argv = ["assemble", "-f", "reads.fa", "-k", "32"]
+    plain = [(tkmer, "extract_kmers_packed_plain")]
+    outputs = ["contig.fa", "32merFrq.tsv"]
+    if het:
+        argv += ["-u", "0.1"]
+        plain.append((talign, "edit_distance_plain"))
+        outputs.append("contigBubble.fa")
+    launched = _run_cpu_then_card(monkeypatch, argv, plain)
+    assert launched["kmer_extract"] > 0
+    assert (launched["edit_distance"] > 0) == bool(het)
+    for name in outputs:
+        want = (tmp_path / f"cpu_{name}").read_bytes()
+        assert len(want) > 0
+        assert (tmp_path / f"gpu_{name}").read_bytes() == want, name
 
 
 def test_solve_dbg_on_card_writes_the_cpu_bytes(dev, tmp_path, monkeypatch):

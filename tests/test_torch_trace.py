@@ -5,23 +5,30 @@ One `assemble` job at 80 kbp runs under the benchmark's traced-run
 recorder (portbench.harness.Recorder), as a `--trace 1` run records it
 on the card: every stage it opens must be recorded with its enclosing
 stage, the new metrics must read it, and only a sliver of the job's wall
-may fall outside every stage and span.
+may fall outside every stage and span. One more job, on a 60 kbp genome
+with repeat families and a second haplotype (-u 0.1), holds the bubble
+stages and the counts of the bubbles and of the contig file.
 """
 
+import contextlib
 import io
 import json
+import math
 import os
 
 import pytest
 import torch
 
+import simdata
+import torch_families
 from platanus_b_tpu_torch.commands import assemble_cmd
 from platanus_b_tpu_torch.commands.main import main as port_main
 from platanus_b_tpu_torch.utils.log import LOG, StageLogger
 from portbench import harness
 
 GENOME_BP = 80_000
-NEW_METRICS = ["staging_s", "coverage_s", "replay_s", "output_s"]
+NEW_METRICS = ["staging_s", "coverage_s", "replay_s", "output_s",
+               "bubble_s"]
 TOP = "-"   # the parent of a stage opened outside every other stage
 # every stage the job opens that a metric, the breakdown or the report
 # reads, with the stages it may run in
@@ -34,6 +41,7 @@ PARENTS = {
     "  chain pull": {"removing branches", "removing erroneous nodes"},
     "  host replay": {"removing branches", "removing erroneous nodes"},
     "average coverage": {TOP},
+    "  bubble mask": {"average coverage"},
     "left minimal coverage": {TOP},
     "    unitig sequences": {"  save contig next-k", "final rebuild"},
     "    kmerize": {"  save contig next-k", "final rebuild"},
@@ -233,3 +241,92 @@ def test_rank_report_spans_parse_as_json(traced_job, monkeypatch):
     for (name, parent, t0, t1, counters), s in zip(report["spans"], records):
         assert name == s.name and parent == s.parent
         assert 0 <= t0 <= t1 and counters == s.counters
+
+
+# -- the bubble stages, on a genome with repeat families ---------------------
+
+BUBBLE_STAGES = ["  bubble pairs", "  bubble align", "  bubble merge"]
+
+
+def _assemble(argv, out):
+    """One port job; (its stage records, its log)."""
+    log = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PLATANUS_B_TPU_TORCH_DEVICE", "cpu")
+        mp.setattr(LOG, "out", log)
+        LOG.reset()
+        assert port_main(argv + ["-o", out]) == 0
+        records = list(LOG.spans)
+        LOG.reset()
+    return records, log.getvalue()
+
+
+@pytest.fixture(scope="module")
+def families_job(tmp_path_factory):
+    """The families genome with a second haplotype, assembled at -k 32 -u
+    0.1: (stage records, log, argv without -o, work directory holding the
+    outputs of prefix `job`)."""
+    work = tmp_path_factory.mktemp("families")
+    simdata.write_fasta(work / "reads.fa",
+                        torch_families.families_reads(het=0.005))
+    argv = ["assemble", "-f", str(work / "reads.fa"), "-k", "32", "-u", "0.1"]
+    records, log = _assemble(argv, str(work / "job"))
+    return records, log, argv, work
+
+
+@pytest.mark.parametrize("name", BUBBLE_STAGES)
+def test_bubble_stage_runs_in_removing_bubbles(families_job, name):
+    records = families_job[0]
+    found = [s for s in records if s.name == name]
+    assert found
+    for s in found:
+        assert records[s.parent].name == "removing bubbles"
+        assert records[s.parent].t0 <= s.t0 <= s.t1 <= records[s.parent].t1
+
+
+def test_crushed_adds_up_to_the_removed_bubbles(families_job):
+    records, log, _argv, _work = families_job
+    crushed = sum(s.counters["crushed"] for s in records
+                  if s.name == "  bubble merge")
+    removed = sum(s.counters["NUM_REMOVED_BUBBLES"] for s in records
+                  if s.name == "removing bubbles")
+    echoed = sum(int(ln.split("=")[1]) for ln in log.splitlines()
+                 if ln.startswith("NUM_REMOVED_BUBBLES = "))
+    assert crushed == removed == echoed > 0
+
+
+def test_pair_counts_are_ordered(families_job):
+    """aligned <= pairs <= C(candidates, 2) in every crush round."""
+    rounds = 0
+    for s in families_job[0]:
+        if s.name == "  bubble pairs":
+            cand, pairs = s.counters["candidates"], s.counters["pairs"]
+            assert pairs <= math.comb(cand, 2)
+            rounds += 1
+        elif s.name == "  bubble align":
+            assert 0 < s.counters["aligned"] <= pairs
+    assert rounds >= 2   # the last round crushes nothing
+
+
+def test_contig_counts_match_the_file(families_job):
+    records, _log, _argv, work = families_job
+    [rec] = [s for s in records if s.name == "writing outputs"]
+    names = (work / "job_contig.fa").read_text().split(">")[1:]
+    junctions = sum(n.startswith("junction") for n in names)
+    assert junctions >= 10
+    assert rec.counters == {"records": len(names), "junctions": junctions}
+    [avg] = [s for s in records if s.name == "average coverage"]
+    assert 0 < avg.counters["bubble_unitigs"] <= avg.counters["unitigs"]
+
+
+def test_stages_leave_the_outputs_alone(families_job, monkeypatch):
+    """The job with the stage clock patched out (no stage, no count)
+    writes the same bytes."""
+    _records, _log, argv, work = families_job
+    monkeypatch.setattr(LOG, "stage", lambda name: contextlib.nullcontext())
+    monkeypatch.setattr(LOG, "count", lambda name, value: None)
+    records, _ = _assemble(argv, str(work / "bare"))
+    assert records == []
+    for suffix in ("_contig.fa", "_contigBubble.fa", "_32merFrq.tsv"):
+        want = (work / f"job{suffix}").read_bytes()
+        assert len(want) > 0 and (work / f"bare{suffix}").read_bytes() == want
