@@ -6,9 +6,10 @@
 - *_iterative drivers   <- graph.h:1830-1870, 2086-2106
 
 The iterative tip/erroneous-node fixed points replay on the element graph
-(_ChainSim, lifted unchanged from clean.py:558: numpy over unitigs and
-junction k-mers) after one device labeling. Float32 coverage decisions use
-float32 arithmetic on the same values as the JAX package.
+(_ChainSim, clean.py:558's replay over unitigs and junction k-mers, on the
+dbg's device) after one device labeling. Float32 coverage decisions use
+float32 arithmetic on the same values as the JAX package; the chain sums
+are of integer values, exact in float64 and int64 in any order.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from ..ops.align import edit_distance_batch
 from ..utils.log import LOG
-from .dbg import DBG, _mask_topo_core, unitig_count_sums
+from .dbg import DBG, _mask_topo_core, _rank_chains, unitig_count_sums
 
 BUBBLE_COVERAGE_RATE = 1.5  # graph.h:283
 
@@ -134,22 +135,32 @@ def delete_erroneous(dbg: DBG, length_cut: int, coverage_cut: float) -> int:
     return n_kill
 
 
+def _replay_counts(sim: _ChainSim, rounds: int) -> None:
+    """The replay's counts on the open `  host replay` record: rounds,
+    elements, the rankings that cut a cycle and the synchronizing reads."""
+    LOG.count("rounds", rounds)
+    LOG.count("elements", sim.ne)
+    LOG.count("cycle_cuts", sim.cycle_cuts)
+    LOG.count("reads", sim.reads)
+
+
 def cut_branch_iterative(dbg: DBG, branch_threshold: float = 0.5) -> int:
     """cutBranchIterative (graph.h:1830-1845): fixed point of tip clipping,
-    replayed on the element graph after one device labeling."""
+    replayed on the element graph after one device labeling; one read of
+    the card a round (besides the ranking's)."""
     with LOG.stage("removing branches"):
         with LOG.stage("  chain pull"):
             sim = _ChainSim(dbg)
+        # the stage keeps its name, though the replay runs on dbg's device
         with LOG.stage("  host replay"):
             total = rounds = 0
             while True:
                 rounds += 1
-                n = sim.cut_branch_round(branch_threshold)
+                n = sim.read(sim.cut_branch_round(branch_threshold))
                 if n == 0:
                     break
                 total += n
-            LOG.count("rounds", rounds)
-            LOG.count("elements", sim.ne)
+            _replay_counts(sim, rounds)
         LOG.counter("NUM_CUT", total)
         if total:
             sim.apply()
@@ -158,7 +169,8 @@ def cut_branch_iterative(dbg: DBG, branch_threshold: float = 0.5) -> int:
 
 def delete_erroneous_iterative(dbg: DBG, length_cut: int, coverage_cut: float,
                                branch_threshold: float = 0.5) -> int:
-    """deleteErroneousStraightNodeIterative (graph.h:2086-2106)."""
+    """deleteErroneousStraightNodeIterative (graph.h:2086-2106); one read
+    of the card an iteration, the sum of its two rounds' kills."""
     with LOG.stage("removing erroneous nodes"):
         with LOG.stage("  chain pull"):
             sim = _ChainSim(dbg)
@@ -169,11 +181,11 @@ def delete_erroneous_iterative(dbg: DBG, length_cut: int, coverage_cut: float,
                 n1 = sim.cut_branch_round(branch_threshold)
                 n2 = sim.delete_erroneous_round(min(length_cut, 2**62),
                                                 min(coverage_cut, 3.4e38))
-                if n1 + n2 == 0:
+                n = sim.read(n1 + n2)
+                if n == 0:
                     break
-                total += n1 + n2
-            LOG.count("rounds", rounds)
-            LOG.count("elements", sim.ne)
+                total += n
+            _replay_counts(sim, rounds)
         LOG.counter("TOTAL_NUM_REMOVED_NODES", total)
         if total:
             sim.apply()
@@ -427,8 +439,8 @@ def average_coverage_excluding_bubble(dbg: DBG) -> float:
 
 
 # ---------------------------------------------------------------------------
-# element-level chain simulation: ONE device labeling feeds a host replay
-# of the cutBranch / deleteErroneous fixed points
+# element-level chain simulation: ONE device labeling feeds a replay of the
+# cutBranch / deleteErroneous fixed points on the dbg's device
 # ---------------------------------------------------------------------------
 
 def _chain_pull(dbg: DBG):
@@ -442,315 +454,184 @@ def _chain_pull(dbg: DBG):
     return csum, hj, hq, tj, tq
 
 
-def _numpy_rank(prv):
-    """Pointer-doubling list ranking in numpy over the element graph:
-    (rank, head, leftover_live) like _doubling_rank."""
-    m = len(prv)
-    rank = np.where(prv >= 0, 1, 0).astype(np.int64)
-    anchor = np.where(prv >= 0, prv, np.arange(m))
-    ptr = prv.copy()
-    for _ in range(max(int(np.ceil(np.log2(max(m, 2)))) + 1, 1)):
-        if not (ptr >= 0).any():
-            break
-        has = ptr >= 0
-        p = np.clip(ptr, 0, m - 1)
-        rank = np.where(has, rank + rank[p], rank)
-        anchor = np.where(has, anchor[p], anchor)
-        ptr = np.where(has, ptr[p], ptr)
-    return rank, anchor, ptr
-
-
 class _ChainSim:
-    """Host replay of the node-level cleaning fixed points at ELEMENT
-    granularity (elements = initial unitigs + junction k-mers), lifted from
-    clean.py:558. Only __init__ (which pulls from the device) and apply()
-    (which pushes the deaths back) differ from the JAX package."""
+    """Replay of the node-level cleaning fixed points at ELEMENT
+    granularity (elements = initial unitigs + junction k-mers), the JAX
+    package's clean.py:558 on the dbg's device.
+
+    Oriented slot 2e+d of element e leaves through adj_e[e, d] (element
+    or -1) and adj_d[e, d] (the entry slot there): a junction's four
+    extensions of orientation d, a unitig's one end attachment (slot 0
+    leaves by its tail, slot 1 by its head). A chain is named by its head
+    slot (the representative of its two strands), so per-chain tensors
+    have one row a slot and need no chain count from the card. The host
+    reads the card only for the junction list here, a ranking's cycle flag
+    and each round's kill count; `reads` counts them."""
 
     def __init__(self, dbg: DBG):
         self.dbg = dbg
         self.k = dbg.k
+        n = dbg.n
         lab = dbg.label_unitigs_device()
         si, so, _out, _od, isj = dbg.topo
         csum, hj, hq, tj, tq = _chain_pull(dbg)
-        nu = lab.num_u
-        self.nu = nu
-        self.ulen = lab.ulen.cpu().numpy().astype(np.int64)
-        self.ucsum = csum.cpu().numpy().astype(np.float64)
-        j_nodes_d = torch.nonzero(isj)[:, 0]
-        self.j_nodes = j_nodes_d.cpu().numpy().astype(np.int64)
-        nj = len(self.j_nodes)
-        self.nj = nj
-        self.jcount = dbg.counts[j_nodes_d].cpu().numpy().astype(np.float64)
-        jsi = si[:, :, j_nodes_d].cpu().numpy().transpose(2, 0, 1)
-        jso = so[:, :, j_nodes_d].cpu().numpy().transpose(2, 0, 1)
-        node2j = np.full(dbg.n, -1, np.int64)
-        node2j[self.j_nodes] = np.arange(nj)
-        uid_h = lab.uid.cpu().numpy()
-        uhead_h = lab.uhead.cpu().numpy().astype(np.int64)
+        self.j_nodes = torch.nonzero(isj)[:, 0]
+        self.reads = 1
+        nu, nj = lab.num_u, self.j_nodes.shape[0]
+        self.nu, self.nj, self.ne = nu, nj, nu + nj
+        dev = dbg.device
+        node2j = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        node2j.scatter_(0, self.j_nodes, torch.arange(nj, device=dev))
+
+        # a node of no unitig reads the spare last slot
+        uhead = torch.cat([lab.uhead, lab.uhead.new_full((1,), -1)])
 
         def node_entry_to_elem(t, p):
             """(target node, entry orientation) -> (element, entry slot d)."""
-            t = np.asarray(t, np.int64)
-            p = np.asarray(p, np.int64)
-            je = node2j[np.clip(t, 0, dbg.n - 1)]
-            uu = uid_h[np.clip(t, 0, dbg.n - 1)].astype(np.int64)
-            oriented = 2 * t + p
-            is_head = (uu >= 0) & (oriented == uhead_h[np.clip(uu, 0, max(nu - 1, 0))])
-            elem = np.where(t < 0, -1,
-                            np.where(je >= 0, nu + je, uu))
-            d = np.where(je >= 0, p, np.where(is_head, 0, 1))
+            tc = t.clamp(0, max(n - 1, 0))
+            je = node2j[tc]
+            uu = lab.uid[tc]
+            is_head = (uu >= 0) & (2 * t + p == uhead[torch.where(uu >= 0, uu, nu)])
+            elem = torch.where(t < 0, -1, torch.where(je >= 0, nu + je, uu))
+            d = torch.where(je >= 0, p, torch.where(is_head, 0, 1))
             return elem, d
 
-        # junction adjacency (element level)
-        e, d = node_entry_to_elem(jsi.reshape(-1), jso.reshape(-1))
-        self.jadj_e = np.where(jsi.reshape(-1) >= 0, e, -1).reshape(nj, 2, 4)
-        self.jadj_d = d.reshape(nj, 2, 4)
-        # unitig end attachments -> element refs (targets are junctions)
-        hj_h = hj.cpu().numpy().astype(np.int64)
-        tj_h = tj.cpu().numpy().astype(np.int64)
-        self.uadj_e = np.full((nu, 2), -1, np.int64)   # [:,0] head, [:,1] tail
-        self.uadj_d = np.zeros((nu, 2), np.int64)
-        hj_e = node2j[np.clip(hj_h, 0, dbg.n - 1)]
-        tj_e = node2j[np.clip(tj_h, 0, dbg.n - 1)]
-        self.uadj_e[:, 0] = np.where((hj_h >= 0) & (hj_e >= 0), nu + hj_e, -1)
-        self.uadj_d[:, 0] = hq.cpu().numpy().astype(np.int64)
-        self.uadj_e[:, 1] = np.where((tj_h >= 0) & (tj_e >= 0), nu + tj_e, -1)
-        self.uadj_d[:, 1] = tq.cpu().numpy().astype(np.int64)
+        # junction rows: (nj, 2, 4) from the node topology
+        jsi = si[:, :, self.j_nodes].permute(2, 0, 1)
+        je, jd = node_entry_to_elem(jsi, so[:, :, self.j_nodes].permute(2, 0, 1))
+        je = torch.where(jsi >= 0, je, -1)
+        # unitig rows: the end attachments (targets are junctions), the
+        # tail's for slot 0 and the head's for slot 1, in column 0
+        ends_e, ends_d = [], []
+        for tgt, q in ((tj, tq), (hj, hq)):
+            tje = node2j[tgt.clamp(0, max(n - 1, 0))]
+            ends_e.append(torch.where((tgt >= 0) & (tje >= 0), nu + tje, -1))
+            ends_d.append(q)
+        ue = torch.full((nu, 2, 4), -1, dtype=torch.int64, device=dev)
+        ud = torch.zeros((nu, 2, 4), dtype=torch.int64, device=dev)
+        ue[:, :, 0] = torch.stack(ends_e, dim=1)
+        ud[:, :, 0] = torch.stack(ends_d, dim=1)
+        self.adj_e = torch.cat([ue, je])
+        self.adj_d = torch.cat([ud, jd])
+        self.elem_len = torch.cat([
+            lab.ulen, torch.ones(nj, dtype=torch.int64, device=dev)])
+        self.elem_cov = torch.cat([csum.to(torch.float64),
+                                   dbg.counts[self.j_nodes].to(torch.float64)])
+        self.alive = torch.ones(self.ne, dtype=torch.bool, device=dev)
+        m = 2 * self.ne
+        self.iters = (max(m, 2) - 1).bit_length() + 1
+        self.cycle_cuts = 0
 
-        self.ne = nu + nj
-        self.alive = np.ones(self.ne, bool)
-        self.total_killed = 0
+    def read(self, count: torch.Tensor) -> int:
+        """A count to the host: one synchronizing read."""
+        self.reads += 1
+        return int(count)
 
     # -- per-round structure ------------------------------------------------
-    def _branching(self):
-        """Live branching (junction-status) mask per element."""
-        br = np.zeros(self.ne, bool)
-        if self.nj:
-            tgt_alive = (self.jadj_e >= 0) & \
-                self.alive[np.clip(self.jadj_e, 0, self.ne - 1)]
-            deg = tgt_alive.sum(axis=2)          # (nj, 2)
-            br[self.nu:] = self.alive[self.nu:] & ((deg[:, 0] >= 2)
-                                                   | (deg[:, 1] >= 2))
-        return br
-
-    def _chains(self, br):
-        """Label chains over oriented element slots: per-slot chain ids and
-        per-chain stats (len in k-mers, covsum, end attachments)."""
-        ne, nu = self.ne, self.nu
-        m = 2 * ne
-        nxt = np.full(m, -1, np.int64)
-        # unitig slots: (u, 0) leaves via tail, (u, 1) via head
-        if nu:
-            for d, side in ((0, 1), (1, 0)):
-                te = self.uadj_e[:, side]
-                td = self.uadj_d[:, side]
-                ok = (te >= 0) & self.alive[np.clip(te, 0, ne - 1)] \
-                    & ~br[np.clip(te, 0, ne - 1)] & self.alive[:nu]
-                nxt[2 * np.arange(nu) + d] = np.where(ok, 2 * te + td, -1)
-        # junction (non-branching) slots: unique live target per orientation
-        if self.nj:
-            tgt_alive = (self.jadj_e >= 0) & \
-                self.alive[np.clip(self.jadj_e, 0, ne - 1)]
-            deg = tgt_alive.sum(axis=2)
-            b = np.argmax(tgt_alive, axis=2)                    # (nj, 2)
-            te = np.take_along_axis(self.jadj_e, b[:, :, None],
-                                    axis=2)[:, :, 0]
-            td = np.take_along_axis(self.jadj_d, b[:, :, None],
-                                    axis=2)[:, :, 0]
-            src_ok = self.alive[nu:] & ~br[nu:]
-            ok = src_ok[:, None] & (deg == 1) & (te >= 0) \
-                & self.alive[np.clip(te, 0, ne - 1)] \
-                & ~br[np.clip(te, 0, ne - 1)]
-            idx = 2 * (nu + np.arange(self.nj))
-            nxt[idx] = np.where(ok[:, 0], 2 * te[:, 0] + td[:, 0], -1)
-            nxt[idx + 1] = np.where(ok[:, 1], 2 * te[:, 1] + td[:, 1], -1)
-        slot_alive = np.repeat(self.alive & ~br, 2)
-        nxt = np.where(slot_alive, nxt, -1)
-        arange = np.arange(m)
-        twin = arange ^ 1
-        nt = nxt[twin]
-        prv = np.where(nt >= 0, nt ^ 1, -1)
-        prv = np.where(slot_alive, prv, -1)
-
-        rank, head, leftover = _numpy_rank(prv)
-        if (leftover >= 0).any():
-            # cycles: deterministic cut (smallest oriented-pair id), then
-            # re-rank — mirrors dbg._label_core's cycle cut
-            in_cycle = leftover >= 0
-            ea = np.where(nxt >= 0, np.minimum(arange, nxt ^ 1), m)
-            eb = np.where(nxt >= 0, np.maximum(arange, nxt ^ 1), m)
-            cyc_ptr = np.where(in_cycle, prv, -1)
-            ma, mb = ea.copy(), eb.copy()
-            ptr = cyc_ptr.copy()
-            for _ in range(max(int(np.ceil(np.log2(max(m, 2)))) + 1, 1)):
-                if not (ptr >= 0).any():
-                    break
-                has = ptr >= 0
-                p = np.clip(ptr, 0, m - 1)
-                better = has & ((ma[p] < ma) | ((ma[p] == ma)
-                                                & (mb[p] < mb)))
-                ma = np.where(better, ma[p], ma)
-                mb = np.where(better, mb[p], mb)
-                ptr = np.where(has, ptr[p], ptr)
-            cut = in_cycle & (ea == ma) & (eb == mb)
-            nxt2 = np.where(cut, -1, nxt)
-            nt2 = nxt2[twin]
-            prv = np.where(nt2 >= 0, nt2 ^ 1, -1)
-            prv = np.where(slot_alive, prv, -1)
-            rank, head, _left = _numpy_rank(prv)
-            nxt = nxt2
-
-        tail = head[twin] ^ 1
-        is_head = slot_alive & (prv == -1)
-        rep = is_head & (arange <= (tail ^ 1))
-        heads = np.nonzero(rep)[0]
-        cid_of_head = np.full(m, -1, np.int64)
-        cid_of_head[heads] = np.arange(len(heads))
-        cid = cid_of_head[head]
-        use_twin = (cid < 0)
-        cid = np.where(use_twin, cid_of_head[tail ^ 1], cid)
-        chain_of = np.where(slot_alive, cid, -1)
-
-        nch = len(heads)
-        elem_len = np.concatenate([self.ulen,
-                                   np.ones(self.nj, np.int64)])
-        elem_cov = np.concatenate([self.ucsum, self.jcount])
+    def _chains(self):
+        """Branching elements and the chains between them over oriented
+        element slots: per slot, as the head slot of a chain, that chain's
+        stats (len in k-mers, ucov, end attachments)."""
+        ne, m = self.ne, 2 * self.ne
+        dev = self.alive.device
+        live = (self.adj_e >= 0) & self.alive[self.adj_e.clamp(min=0)]
+        deg = live.sum(dim=2)                                   # (ne, 2)
+        b = torch.argmax(live.to(torch.int8), dim=2, keepdim=True)
+        te = torch.gather(self.adj_e, 2, b).reshape(-1)         # (m,)
+        td = torch.gather(self.adj_d, 2, b).reshape(-1)
+        br = self.alive & (deg >= 2).any(dim=1)
+        one = deg.reshape(-1) == 1
+        slot_alive = (self.alive & ~br)[:, None].expand(ne, 2).reshape(-1)
+        nxt = torch.where(slot_alive & one & ~br[te.clamp(min=0)],
+                          2 * te + td, -1)
+        prv, _rank, head, cut = _rank_chains(nxt, self.iters)
+        self.reads += 1                      # the ranking's cycle flag
+        self.cycle_cuts += cut
+        arange = torch.arange(m, device=dev)
+        tail = head[arange ^ 1] ^ 1
+        rep = slot_alive & (prv == -1) & (arange <= (tail ^ 1))
+        # each live slot's chain: its head, or its twin chain's head
+        cid = torch.where(rep[head], head, tail ^ 1)
+        e_cid = torch.where(slot_alive, cid, -1)[0::2]           # (ne,)
         # per-chain stats: each ELEMENT contributes once
-        e_cid = chain_of[2 * np.arange(ne)]
-        e_cid = np.where(e_cid >= 0, e_cid, chain_of[2 * np.arange(ne) + 1])
-        ch_len = np.zeros(nch + 1, np.int64)
-        ch_cov = np.zeros(nch + 1, np.float64)
-        sel = e_cid >= 0
-        np.add.at(ch_len, np.where(sel, e_cid, nch), np.where(sel, elem_len, 0))
-        np.add.at(ch_cov, np.where(sel, e_cid, nch), np.where(sel, elem_cov, 0.0))
-        ch_len = ch_len[:nch]
-        ch_cov = ch_cov[:nch]
-
-        def raw_out(slots):
-            """outgoing (elem, d) from oriented slots (end_attach
-            semantics: deg==1 & target exists)."""
-            e = slots >> 1
-            d = slots & 1
-            te = np.full(len(slots), -1, np.int64)
-            td = np.zeros(len(slots), np.int64)
-            uu = e < nu
-            if uu.any():
-                side = np.where(d[uu] == 0, 1, 0)
-                te[uu] = self.uadj_e[e[uu], side]
-                td[uu] = self.uadj_d[e[uu], side]
-            jj = ~uu
-            if jj.any():
-                jl = e[jj] - nu
-                tgt_alive = (self.jadj_e[jl, d[jj]] >= 0) & \
-                    self.alive[np.clip(self.jadj_e[jl, d[jj]], 0, ne - 1)]
-                deg = tgt_alive.sum(axis=1)
-                b = np.argmax(tgt_alive, axis=1)
-                t_e = self.jadj_e[jl, d[jj], b]
-                t_d = self.jadj_d[jl, d[jj], b]
-                one = deg == 1
-                te[jj] = np.where(one, t_e, -1)
-                td[jj] = np.where(one, t_d, 0)
-            ok = (te >= 0) & self.alive[np.clip(te, 0, ne - 1)]
-            return np.where(ok, te, -1), td
-
-        ch_head_slot = heads
-        ch_tail_slot = tail[heads]
-        h_e, h_d = raw_out(ch_head_slot ^ 1)
-        t_e, t_d = raw_out(ch_tail_slot)
-        br_ok_h = (h_e >= 0) & br[np.clip(h_e, 0, ne - 1)]
-        br_ok_t = (t_e >= 0) & br[np.clip(t_e, 0, ne - 1)]
+        slot = torch.where(e_cid >= 0, e_cid, m)
+        ch_len = torch.zeros(m + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, slot, self.elem_len)[:m]
+        ch_cov = torch.zeros(m + 1, dtype=torch.float64, device=dev) \
+            .index_add_(0, slot, self.elem_cov)[:m]
+        # end attachments (end_attach semantics: deg==1 & target exists),
+        # kept where the target is branching; the head leaves by its twin
+        out_e = torch.where(one, te, -1)
+        out_d = torch.where(one, td, 0)
+        h_e, t_e = out_e[arange ^ 1], out_e[tail]
         return {
-            "nch": nch, "chain_of_elem": e_cid,
-            "len": ch_len, "cov": ch_cov,
-            "head_j": np.where(br_ok_h, h_e, -1), "head_q": h_d,
-            "tail_j": np.where(br_ok_t, t_e, -1), "tail_q": t_d,
+            "br": br, "rep": rep, "chain_of_elem": e_cid,
+            "len": ch_len,
+            "ucov": torch.floor(ch_cov / ch_len.clamp(min=1) + 0.5),
+            "head_j": torch.where((h_e >= 0) & br[h_e.clamp(min=0)], h_e, -1),
+            "head_q": out_d[arange ^ 1],
+            "tail_j": torch.where((t_e >= 0) & br[t_e.clamp(min=0)], t_e, -1),
+            "tail_q": out_d[tail],
         }
 
-    def _sibling_maxcov(self, ch, br, jn_elem, jq, exclude_chain):
+    def _sibling_maxcov(self, ch, jn_elem, jq):
         """Max branch coverage at junction element jn_elem on the side
         facing the tip (orientation 1-jq), excluding the tip's own chain."""
-        maxcov = np.zeros(len(jn_elem), np.float64)
-        if self.nj == 0:
-            return maxcov
-        jl = np.clip(jn_elem - self.nu, 0, self.nj - 1)
-        q = 1 - jq
-        ucov_chain = np.floor(ch["cov"] / np.maximum(ch["len"], 1) + 0.5)
-        for b in range(4):
-            te = self.jadj_e[jl, q, b]
-            has = (te >= 0) & self.alive[np.clip(te, 0, self.ne - 1)]
-            tcl = np.clip(te, 0, self.ne - 1)
-            t_br = br[tcl]
-            cov_j = np.where(te >= self.nu,
-                             self.jcount[np.clip(te - self.nu, 0,
-                                                 max(self.nj - 1, 0))], 0.0)
-            t_chain = ch["chain_of_elem"][tcl]
-            cov_u = np.where(t_chain >= 0,
-                             ucov_chain[np.clip(t_chain, 0,
-                                                max(ch["nch"] - 1, 0))], 0.0)
-            cov = np.where(t_br, cov_j, cov_u)
-            excl = (~t_br) & (t_chain == exclude_chain)
-            cov = np.where(has & ~excl, cov, 0.0)
-            maxcov = np.maximum(maxcov, cov)
-        return maxcov
+        br, e_cid = ch["br"], ch["chain_of_elem"]
+        te = self.adj_e[jn_elem.clamp(0, self.ne - 1), 1 - jq]   # (m, 4)
+        tcl = te.clamp(min=0)
+        has = (te >= 0) & self.alive[tcl]
+        t_br = br[tcl]
+        t_chain = e_cid[tcl]
+        cov_u = torch.where(t_chain >= 0, ch["ucov"][t_chain.clamp(min=0)], 0.0)
+        cov = torch.where(t_br, self.elem_cov[tcl], cov_u)
+        own = torch.arange(te.shape[0], device=te.device)[:, None]
+        excl = ~t_br & (t_chain == own)
+        return torch.where(has & ~excl, cov, 0.0).amax(dim=1)
 
-    def _kill_chains(self, ch, kill_mask):
-        """Mark all member elements of killed chains dead."""
+    def _kill_chains(self, ch, kill):
+        """Mark all member elements of killed chains dead; the count of
+        killed chains, on the device."""
         e_cid = ch["chain_of_elem"]
-        sel = (e_cid >= 0) & kill_mask[np.clip(e_cid, 0,
-                                               max(ch["nch"] - 1, 0))]
-        if sel.any():
-            self.alive[sel] = False
-        return int(kill_mask.sum())
+        self.alive = self.alive & ~((e_cid >= 0) & kill[e_cid.clamp(min=0)])
+        return kill.sum()
 
-    def cut_branch_round(self, branch_threshold: float) -> int:
+    def cut_branch_round(self, branch_threshold: float) -> torch.Tensor:
         """One cutBranch decision+apply on the current element graph."""
-        br = self._branching()
-        ch = self._chains(br)
-        if ch["nch"] == 0:
-            return 0
+        ch = self._chains()
         short = ch["len"] <= self.k
         one_side = (ch["head_j"] >= 0) ^ (ch["tail_j"] >= 0)
-        tip = short & one_side
-        jn = np.where(ch["head_j"] >= 0, ch["head_j"], ch["tail_j"])
-        jq = np.where(ch["head_j"] >= 0, ch["head_q"], ch["tail_q"])
-        maxcov = self._sibling_maxcov(ch, br, np.clip(jn, self.nu, None),
-                                      jq, np.arange(ch["nch"]))
-        ucov = np.floor(ch["cov"] / np.maximum(ch["len"], 1) + 0.5)
-        kill = tip & (ucov.astype(np.float32)
-                      <= (maxcov.astype(np.float32)
-                          * np.float32(branch_threshold)))
-        self._kill_chains(ch, kill)
-        return int(kill.sum())
+        tip = ch["rep"] & short & one_side
+        at_head = ch["head_j"] >= 0
+        jn = torch.where(at_head, ch["head_j"], ch["tail_j"])
+        jq = torch.where(at_head, ch["head_q"], ch["tail_q"])
+        maxcov = self._sibling_maxcov(ch, jn, jq)
+        kill = tip & (ch["ucov"].to(torch.float32)
+                      <= (maxcov.to(torch.float32)
+                          * torch.tensor(branch_threshold,
+                                         dtype=torch.float32)))
+        return self._kill_chains(ch, kill)
 
-    def delete_erroneous_round(self, length_cut, coverage_cut) -> int:
-        br = self._branching()
-        ch = self._chains(br)
-        if ch["nch"] == 0:
-            return 0
-        ucov = np.floor(ch["cov"] / np.maximum(ch["len"], 1) + 0.5)
-        kill = (ch["len"] < length_cut) \
-            & (ucov.astype(np.float32) < np.float32(coverage_cut))
-        self._kill_chains(ch, kill)
-        return int(kill.sum())
+    def delete_erroneous_round(self, length_cut, coverage_cut) -> torch.Tensor:
+        ch = self._chains()
+        kill = ch["rep"] & (ch["len"] < length_cut) \
+            & (ch["ucov"].to(torch.float32)
+               < torch.tensor(coverage_cut, dtype=torch.float32))
+        return self._kill_chains(ch, kill)
 
-    def apply(self) -> int:
+    def apply(self) -> None:
         """Push accumulated element deaths down to the nodes and refresh the
         topology by masking. Dead junction indices are unique, so the
         scatter has one writer per index."""
         dbg = self.dbg
-        kill_u = ~self.alive[:self.nu]
-        dead_j = self.j_nodes[~self.alive[self.nu:]]
-        if not kill_u.any() and len(dead_j) == 0:
-            return 0
         lab = dbg.label_unitigs_device()
-        kill_u_dev = torch.from_numpy(kill_u).to(dbg.device)
-        node_kill = (lab.uid >= 0) & kill_u_dev[lab.uid.clamp(0, max(self.nu - 1, 0))] \
-            if self.nu else torch.zeros(dbg.n, dtype=torch.bool, device=dbg.device)
-        if len(dead_j):
-            node_kill[torch.from_numpy(dead_j).to(dbg.device)] = True
+        # a node of no unitig reads the spare last slot
+        kill_u = torch.cat([~self.alive[:self.nu],
+                            torch.zeros(1, dtype=torch.bool, device=dbg.device)])
+        node_kill = kill_u[torch.where(lab.uid >= 0, lab.uid, self.nu)]
+        node_kill.scatter_(0, self.j_nodes, ~self.alive[self.nu:])
         dbg.alive = dbg.alive & ~node_kill
         si0, so0, _o, _od, _isj = dbg.topo
         dbg._topo = _mask_topo_core(si0, so0, dbg.alive)
         dbg._labels = None
         dbg._unitigs = None
-        return 1

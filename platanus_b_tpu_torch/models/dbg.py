@@ -162,10 +162,11 @@ def _rank_pass(nxt: torch.Tensor, iters: int):
 def _rank_chains(nxt: torch.Tensor, iters: int):
     """dbg.py:240-298: ranks of the chain links nxt (oriented id 2i+o ->
     the next one, or -1), with every junction-free cycle cut once. Returns
-    (prv, rank, head) after the cut. On the card the only host sync is the
-    read of the first pass's live flag."""
+    (prv, rank, head) after the cut and whether the cut ran. On the card
+    the only host sync is the read of the first pass's live flag."""
     prv, rank, head, ptr_rem, stats = _rank_pass(nxt, iters)
-    if bool(stats[1]):
+    cut = bool(stats[1])
+    if cut:
         # mirror-consistent cycle cut (dbg.py:263-293): edge j -> nxt[j] and
         # its strand mirror share the id pair {j, nxt[j]^1}; cutting the
         # smallest pair of each cycle picks the same physical cut on both
@@ -180,7 +181,7 @@ def _rank_chains(nxt: torch.Tensor, iters: int):
         cut_here = in_cycle & (ea == a) & (eb == bb)
         nxt = torch.where(cut_here, INVALID, nxt)
         prv, rank, head, _ptr, _stats = _rank_pass(nxt, iters)
-    return prv, rank, head
+    return prv, rank, head, cut
 
 
 def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
@@ -201,7 +202,7 @@ def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
         nxt_o.append(torch.where(src_ok & s_ok, 2 * s + p, INVALID))
     nxt = torch.stack(nxt_o, dim=1).reshape(-1)        # oriented id 2i+o
 
-    prv, rank, head = _rank_chains(nxt, iters)
+    prv, rank, head, _cut = _rank_chains(nxt, iters)
     arange = torch.arange(m, device=dev)
     twin = arange ^ 1
     # chain tail via twin symmetry: tail = head[twin] ^ 1

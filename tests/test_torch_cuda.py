@@ -784,6 +784,102 @@ def test_save_contig_next_k_on_card_is_the_cpu_table(dev):
     assert torch.equal(got.counts.cpu(), want.counts)
 
 
+# synchronizing calls of the cleaning replay on a labeled graph: the pull
+# reads the junction list; a cut-branch round reads its ranking's cycle
+# flag and its kill count; a delete iteration reads its two rankings'
+# flags and the sum of its two rounds' kills; apply reads nothing
+PULL_SYNCS, CUT_ROUND_SYNCS, DELETE_ITERATION_SYNCS, APPLY_SYNCS = 1, 2, 3, 0
+
+
+@pytest.mark.parametrize("graph", ["families", "errors_60k"])
+def test_cleaning_replay_on_card_is_the_cpu_replay(dev, monkeypatch, graph):
+    """cut_branch_iterative, then delete_erroneous_iterative, on the card:
+    the totals, the alive mask and the labeling afterwards equal the CPU
+    run of the same graph (torch_families' genome, or 60 kbp at 0.5 %
+    errors); the rankings launch list_rank and no plain version; each
+    call's synchronizing calls are the pinned constants above, as its
+    `  host replay` record's `reads` counts them."""
+    import warnings
+
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models import assemble_core as tcore
+    from platanus_b_tpu_torch.models import clean as tclean
+    from platanus_b_tpu_torch.utils.log import LOG
+    if graph == "families":
+        reads = torch_families.families_reads()
+    else:
+        rng = np.random.default_rng(60)
+        genome = simdata.random_genome(rng, 60_000)
+        reads = simdata.shotgun_reads(rng, genome, 100, 30.0,
+                                      error_rate=0.005)
+    table, _h = tcore.count_reads(tcore.stage_reads([pack_reads(reads)], dev),
+                                  32)
+    g = tcore.build_dbg_from_table(table, 2)
+    cpu = tcore.build_dbg_from_table(
+        tcore.KmerTable(32, table.keys.cpu(), table.counts.cpu()), 2)
+    monkeypatch.setattr(LOG, "spans", [])
+    want = [tclean.cut_branch_iterative(cpu, 0.5)]
+    args = (64, 0.5 * tclean.average_coverage_excluding_bubble(cpu) + 0.5,
+            0.5)
+    want.append(tclean.delete_erroneous_iterative(cpu, *args))
+    assert want[0] > 0
+    ref = cpu.label_unitigs()
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("plain version called on the card")
+
+    for name in ("doubling_rank_plain", "rank_from_prev_plain",
+                 "cycle_min_pair_plain"):
+        monkeypatch.setattr(trank, name, no_plain)
+    caught, phases = {"warnings": []}, []
+
+    def syncs():
+        return sum("called a synchronizing CUDA operation" in str(w.message)
+                   for w in caught["warnings"])
+
+    def phase(name, fn):
+        def run(*a, **k):
+            before = syncs()
+            out = fn(*a, **k)
+            phases.append((name, syncs() - before))
+            return out
+        return run
+
+    monkeypatch.setattr(tclean._ChainSim, "__init__",
+                        phase("pull", tclean._ChainSim.__init__))
+    monkeypatch.setattr(tclean._ChainSim, "apply",
+                        phase("apply", tclean._ChainSim.apply))
+    before = kernels.LAUNCHES["list_rank"]
+    got = []
+    for call, per_round, a in (
+            (tclean.cut_branch_iterative, CUT_ROUND_SYNCS, (0.5,)),
+            (tclean.delete_erroneous_iterative, DELETE_ITERATION_SYNCS,
+             args)):
+        g.label_unitigs_device()
+        LOG.spans.clear()
+        phases.clear()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught["warnings"]:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got.append(call(g, *a))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        replay, = [s.counters for s in LOG.spans if s.name == "  host replay"]
+        total = PULL_SYNCS + per_round * replay["rounds"]
+        assert phases[0] == ("pull", PULL_SYNCS)
+        assert phases[1:] == ([("apply", APPLY_SYNCS)] if got[-1] else [])
+        assert syncs() == replay["reads"] == total, [
+            str(w.message) for w in caught["warnings"]]
+    assert got == want
+    assert kernels.LAUNCHES["list_rank"] > before
+    assert torch.equal(g.alive.cpu(), cpu.alive)
+    have = g.label_unitigs()
+    for f in ("uid", "upos", "uorient", "ulen", "ucov", "uhead", "utail"):
+        assert np.array_equal(getattr(have, f), getattr(ref, f)), f
+
+
 # K7: (uid, counts, num_u) of each case; "long_300k" is one unitig of
 # 300,000 nodes with counts 60-99 summing to 23,849,980 (exact mean
 # 79.49993, the float32 sum's mean 79.5002: ucov 80, the exact 79)

@@ -6,6 +6,8 @@ adjacency, unitig labels, sequences and every cleaning step must then
 agree exactly (node ids are equal on both sides).
 """
 
+import io
+
 import numpy as np
 import pytest
 
@@ -16,6 +18,7 @@ from platanus_b_tpu.models.dbg import DBG as JDBG
 from platanus_b_tpu.ops import count as jcnt
 from platanus_b_tpu_torch import interop
 from platanus_b_tpu_torch.models import clean as tclean
+from platanus_b_tpu_torch.utils.log import LOG
 
 
 def _dataset(name):
@@ -37,6 +40,14 @@ def _dataset(name):
         reads = (simdata.shotgun_reads(rng, g, 70, 20.0, error_rate=0.002)
                  + simdata.shotgun_reads(rng, g2, 70, 20.0, error_rate=0.002))
         return reads, 21, 1
+    if name == "circular_tip":
+        # a 1 kbp circle (its 1,001 k-mers keep the JAX graph at the
+        # smallest capacity) and one read whose last base is wrong: a
+        # one-k-mer error tip off a junction of the circle
+        g = simdata.random_genome(rng, 1000)
+        reads = [(g + g)[i:i + 60] for i in range(0, len(g), 2)]
+        last = "ACGT"[("ACGT".index(g[159]) + 1) % 4]
+        return reads + [g[100:159] + last], 21, 0
     raise KeyError(name)
 
 
@@ -105,6 +116,25 @@ def test_cut_branch_iterative(name):
     # one device round on the cleaned graph
     assert tclean.cut_branch(t, 0.5) == jclean.cut_branch(j, 0.5)
     _assert_same_graph(j, t)
+
+
+def test_cut_branch_cuts_an_element_cycle(monkeypatch):
+    """Once the error tip dies, its junction and the rest of the circle
+    form one junction-free cycle of elements: the replay's ranking cuts it
+    (the `  host replay` record counts the cut), and the totals and the
+    graph equal the JAX package's."""
+    j, t = _pair("circular_tip")
+    assert t.topo[4].sum() == 1
+    monkeypatch.setattr(LOG, "out", io.StringIO())
+    monkeypatch.setattr(LOG, "spans", [])
+    assert tclean.cut_branch_iterative(t, 0.5) \
+        == jclean.cut_branch_iterative(j, 0.5) == 1
+    _assert_same_graph(j, t)
+    assert not t.topo[4].any() and t.label_unitigs().num_unitigs == 1
+    replay, = [s.counters for s in LOG.spans if s.name == "  host replay"]
+    # round 1 kills the tip, round 2 ranks the cycle and kills nothing
+    assert replay["rounds"] == 2 and replay["cycle_cuts"] == 1
+    assert replay["reads"] == 1 + 2 * replay["rounds"]
 
 
 @pytest.mark.parametrize("name", DATASETS)

@@ -203,7 +203,12 @@ def test_job_records_stage_with_its_parent(traced_job, name):
     assert parents[name] <= PARENTS[name], parents[name]
     for s in records:
         if s.name == "  host replay":
-            assert s.counters["rounds"] >= 1 and s.counters["elements"] > 0
+            rounds = s.counters["rounds"]
+            assert rounds >= 1 and s.counters["elements"] > 0
+            assert s.counters["cycle_cuts"] >= 0
+            # the junction list, then 2 reads a cut-branch round or 3 a
+            # delete iteration
+            assert s.counters["reads"] in (1 + 2 * rounds, 1 + 3 * rounds)
 
 
 def test_job_records_match_the_harness_intervals(traced_job):
