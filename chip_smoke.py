@@ -1330,8 +1330,8 @@ MANY_LONG = {"seed": 12, "nodes": 5_754_499, "unitigs": 64_267, "long": 12,
              "long_lo": 250_000, "long_hi": 450_000, "lo": 60, "hi": 99}
 # K7's long path as runs give it: of the 27 K7 calls of `assemble -k 32`
 # on this script's reads at 4.6 Mbp and 100x, only the final rebuild's
-# labeling has unitigs past 2^24 (none at 40x; unitig_sum_in_turns.py's
-# survey): 4,599,887 nodes in 22 unitigs, two of them of 694,221 and
+# labeling has unitigs past 2^24 (none at 40x; the survey of the former
+# unitig_sum_in_turns.py): 4,599,887 nodes in 22 unitigs, two of 694,221 and
 # 612,372 nodes, whose nodes' counts run 24-37 (1st-99th percentile
 # 27-31, mean 29.07). Here: the two lengths drawn from that range, the
 # other 20 unitigs sharing the rest, ids shuffled, counts 27-31.

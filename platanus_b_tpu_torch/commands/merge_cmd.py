@@ -16,14 +16,13 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from ..device import select_device
 from ..io import fasta as fa
 from ..models import clean
 from ..models.assemble_core import (average_coverage_excluding_outlier,
-                                    build_dbg_from_table, count_from_contigs)
-from ..ops.kmer import kmer_to_codes
+                                    build_dbg_from_table, count_from_contigs,
+                                    graph_records)
 from ..utils.errors import ArgError, IOError_
 from ..utils.log import LOG
 
@@ -90,20 +89,11 @@ def run_merge(contig_files, out_prefix, k_factor=1.0, len_factor=2.0,
     if bubble > 0:
         clean.crush_bubble_iterative(dbg, avg_cov, bubble)
 
-    u = dbg.label_unitigs()
-    flat, offs, lens = dbg.unitig_sequences_flat()
-    contigs = [flat[offs[i]: offs[i] + lens[i]] for i in range(u.num_unitigs)]
-    contig_covs = [float(u.ucov[i]) for i in range(u.num_unitigs)]
-    ji, jc = dbg.junction_info()
-    j_keys = dbg.keys[torch.as_tensor(ji, device=dbg.device)]
-    j_codes = (kmer_to_codes(j_keys, k).cpu().numpy()
-               if len(ji) else np.zeros((0, k), np.uint8))
+    contigs, contig_covs, junctions, junction_covs = graph_records(dbg, 1.0)
     fa.write_contigs(f"{out_prefix}_merged.fa", contigs, contig_covs, 1.0,
                      read_len, k, prefix="seq")
-    fa.write_contigs(f"{out_prefix}_mergedJunctionKmer.fa",
-                     [j_codes[i] for i in range(len(ji))],
-                     [float(c) for c in jc], 1.0, read_len, k,
-                     prefix="junction")
+    fa.write_contigs(f"{out_prefix}_mergedJunctionKmer.fa", junctions,
+                     junction_covs, 1.0, read_len, k, prefix="junction")
     LOG.info("merge completed!")
     return 0
 

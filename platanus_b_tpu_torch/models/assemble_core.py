@@ -584,12 +584,25 @@ class AssembleResult:
 
 
 def _contigs_of(dbg: DBG, ratio: float):
+    """A graph's unitig records: (sequences, covs), each cov the unitig's
+    times `ratio`."""
     u = dbg.label_unitigs()
-    fflat, foffs, flens = dbg.unitig_sequences_flat()
-    contigs = [fflat[foffs[i]: foffs[i] + flens[i]]
-               for i in range(u.num_unitigs)]
-    covs = [float(u.ucov[i]) * ratio for i in range(u.num_unitigs)]
-    return contigs, covs
+    flat, offs, lens = dbg.unitig_sequences_flat()
+    return ([flat[o: o + n] for o, n in zip(offs, lens)],
+            [float(c) * ratio for c in u.ucov])
+
+
+def graph_records(dbg: DBG, ratio: float):
+    """A graph's output records: (contig sequences, contig covs, junction
+    k-mer codes, junction covs), each cov the unitig's or the junction
+    k-mer's times `ratio` (assemble's contigs at its coverage ratio, the
+    merge command's at 1)."""
+    contigs, covs = _contigs_of(dbg, ratio)
+    ji, jc = dbg.junction_info()
+    j_codes = (kmer_to_codes(dbg.keys[torch.from_numpy(ji).to(dbg.device)],
+                             dbg.k).cpu().numpy()
+               if len(ji) else np.zeros((0, dbg.k), np.uint8))
+    return contigs, covs, list(j_codes), [float(c) * ratio for c in jc]
 
 
 def assemble(batches: list[ReadBatch], opts: AssembleOptions,
@@ -748,13 +761,8 @@ def assemble(batches: list[ReadBatch], opts: AssembleOptions,
 
     cov_ratio = average_length / (average_length - k_last + 1.0)
     with LOG.stage("contigs"):
-        contigs, contig_covs = _contigs_of(dbg, cov_ratio)
-        ji, jc = dbg.junction_info()
-        j_codes = (kmer_to_codes(dbg.keys[torch.from_numpy(ji).to(device)],
-                                 k_last).cpu().numpy()
-                   if len(ji) else np.zeros((0, k_last), np.uint8))
-        junctions = [j_codes[i] for i in range(len(ji))]
-        junction_covs = [float(c) * cov_ratio for c in jc]
+        contigs, contig_covs, junctions, junction_covs = graph_records(
+            dbg, cov_ratio)
     return AssembleResult(contigs, contig_covs, junctions, junction_covs,
                           bubbles, average_length, k_last,
                           kmer_table=table, hist0=hist0, k0=k0)

@@ -21,7 +21,8 @@ import torch
 
 from ..ops.align import edit_distance_batch
 from ..utils.log import LOG
-from .dbg import DBG, _mask_topo_core, _rank_chains, unitig_count_sums
+from .dbg import (DBG, _mask_topo_core, _rank_chains, unitig_count_sums,
+                  unitig_to_nodes)
 
 BUBBLE_COVERAGE_RATE = 1.5  # graph.h:283
 
@@ -60,24 +61,35 @@ def _end_attach(si, so, outdeg, ends, side):
     return torch.where(attached, tgt, -1), torch.where(attached, tor, 0)
 
 
-def _unitig_ends(dbg: DBG):
-    """Per-unitig end attachments (clean.py:40), host arrays:
-    {side: (junction node or -1, junction orientation)}."""
-    u = dbg.label_unitigs()
-    si, so, _out, od, _isj = dbg.topo_host()
-    res = {}
-    for side, ends in ((0, u.uhead), (1, u.utail)):
-        i = ends >> 1
-        o = ends & 1
-        look = (1 - o) if side == 0 else o
-        deg = od[i, look]
-        b = np.argmax(si[i, look] >= 0, axis=-1)
-        tgt = si[i, look, b]
-        tgt_or = so[i, look, b]
-        attached = (deg == 1) & (tgt >= 0)
-        res[side] = (np.where(attached, tgt, -1),
-                     np.where(attached, tgt_or, 0))
-    return res
+def _end_attachments(dbg: DBG):
+    """Each unitig's end attachments (clean.py:40): (head_j, head_q,
+    tail_j, tail_q), (U,) tensors on the graph's device."""
+    si, so, _out, od, _isj = dbg.topo
+    lab = dbg.label_unitigs_device()
+    return (*_end_attach(si, so, od, lab.uhead, 0),
+            *_end_attach(si, so, od, lab.utail, 1))
+
+
+def _junction_pair_groups(head_j, tail_j, n: int):
+    """Unitigs grouped by unordered junction pair (clean.py:292-300 and
+    the searchBubbleStructure grouping, graph.h:2386-2406): a unitig
+    attached at both ends (head_j, tail_j >= 0) joins the group of
+    (min, max) of its two ends. Returns (order, gid, size), (U,) tensors,
+    with no host sync: order lists the unitigs by pair, then by id, the
+    others last; gid[i] is order[i]'s group (-1 for the others), groups
+    numbered in that order; size[g] counts group g's members."""
+    U = head_j.shape[0]
+    dev = head_j.device
+    both = (head_j >= 0) & (tail_j >= 0)
+    key = torch.where(both, torch.minimum(head_j, tail_j) * n
+                      + torch.maximum(head_j, tail_j), n * n)
+    key, order = torch.sort(key, stable=True)
+    new = torch.ones(U, dtype=torch.bool, device=dev)
+    new[1:] = key[1:] != key[:-1]
+    gid = torch.where(key < n * n, torch.cumsum(new, dim=0) - 1, -1)
+    size = torch.zeros(U + 1, dtype=torch.int64, device=dev).index_add_(
+        0, torch.where(gid >= 0, gid, U), torch.ones_like(gid))[:U]
+    return order, gid, size
 
 
 def _cut_branch_kill(dbg: DBG, branch_threshold: float):
@@ -87,8 +99,7 @@ def _cut_branch_kill(dbg: DBG, branch_threshold: float):
     n = dbg.n
     U = lab.num_u
     dev = dbg.device
-    head_j, head_q = _end_attach(si, so, outdeg, lab.uhead, 0)
-    tail_j, tail_q = _end_attach(si, so, outdeg, lab.utail, 1)
+    head_j, head_q, tail_j, tail_q = _end_attachments(dbg)
     tip = (lab.ulen <= dbg.k) & ((head_j >= 0) ^ (tail_j >= 0))
     jn = torch.where(head_j >= 0, head_j, tail_j).clamp(0, max(n - 1, 0))
     q = 1 - torch.where(head_j >= 0, head_q, tail_q)
@@ -106,9 +117,7 @@ def _cut_branch_kill(dbg: DBG, branch_threshold: float):
     kill_u = tip & (lab.ucov.to(torch.float32)
                     <= maxcov.to(torch.float32)
                     * torch.tensor(branch_threshold, dtype=torch.float32))
-    node_kill = (lab.uid >= 0) & kill_u[lab.uid.clamp(0, max(U - 1, 0))] \
-        if U else torch.zeros(n, dtype=torch.bool, device=dev)
-    return node_kill, int(kill_u.sum())
+    return unitig_to_nodes(lab, kill_u), int(kill_u.sum())
 
 
 def cut_branch(dbg: DBG, branch_threshold: float = 0.5) -> int:
@@ -130,8 +139,7 @@ def delete_erroneous(dbg: DBG, length_cut: int, coverage_cut: float) -> int:
         < torch.tensor(min(coverage_cut, 3.4e38), dtype=torch.float32))
     n_kill = int(kill_u.sum())
     if n_kill:
-        dbg.delete_nodes((lab.uid >= 0)
-                         & kill_u[lab.uid.clamp(0, max(lab.num_u - 1, 0))])
+        dbg.delete_nodes(unitig_to_nodes(lab, kill_u))
     return n_kill
 
 
@@ -217,12 +225,11 @@ def crush_bubble(dbg: DBG, average_coverage: float,
         u = dbg.label_unitigs()
         if u.num_unitigs == 0:
             return 0
-        ends = _unitig_ends(dbg)
-        head_j, _head_q = ends[0]
-        tail_j, _tail_q = ends[1]
-
-        both = (head_j >= 0) & (tail_j >= 0)
-        cand = np.nonzero(both)[0]
+        head_j, _hq, tail_j, _tq = _end_attachments(dbg)
+        order, gid, _size = _junction_pair_groups(head_j, tail_j, dbg.n)
+        order, gid, head_j, tail_j = torch.stack(
+            [order, gid, head_j, tail_j]).cpu().numpy()
+        cand = order[gid >= 0]
         LOG.count("candidates", len(cand))
         if len(cand) == 0:
             return 0
@@ -231,23 +238,17 @@ def crush_bubble(dbg: DBG, average_coverage: float,
         if average_coverage >= 0xFFFF:
             cov_threshold = 0xFFFF
 
-        # group candidate branches by unordered junction pair
-        ja = np.minimum(head_j[cand], tail_j[cand])
-        jb = np.maximum(head_j[cand], tail_j[cand])
-        order = np.lexsort((jb, ja))
-        cand = cand[order]
-        ja, jb = ja[order], jb[order]
-        grp_new = np.ones(len(cand), dtype=bool)
-        grp_new[1:] = (ja[1:] != ja[:-1]) | (jb[1:] != jb[:-1])
-        grp_id = np.cumsum(grp_new) - 1
-        grp_start = np.flatnonzero(grp_new)
+        grp_start = np.flatnonzero(np.diff(gid[: len(cand)], prepend=-1))
         grp_end = np.append(grp_start[1:], len(cand))
 
-        seqs, base_lens = dbg.unitig_sequences()
+        flat, offs, base_lens = dbg.unitig_sequences_flat()
+
+        def seq(ui):
+            return flat[offs[ui]: offs[ui] + base_lens[ui]]
 
         def branch_seq(ui):
             # orient every branch from the smaller junction to the larger
-            s = seqs[ui, : base_lens[ui]]
+            s = seq(ui)
             if min(head_j[ui], tail_j[ui]) != head_j[ui]:
                 s = (3 - s[::-1]) % 5
                 s = np.where(s > 3, 4, s)
@@ -266,7 +267,6 @@ def crush_bubble(dbg: DBG, average_coverage: float,
         LOG.count("pairs", len(pairs_a))
         if not pairs_a:
             return 0
-        del grp_id
     pairs_a = np.array(pairs_a)
     pairs_b = np.array(pairs_b)
 
@@ -341,22 +341,21 @@ def crush_bubble(dbg: DBG, average_coverage: float,
                 cov_add[winner] += u.ucov[mbr] * u.ulen[mbr] / u.ulen[winner]
                 kill[mbr] = True
                 if crushed is not None:
-                    crushed.append(CrushedBubble(
-                        seq=seqs[mbr, : base_lens[mbr]].copy(),
-                        coverage=int(u.ucov[mbr])))
+                    crushed.append(CrushedBubble(seq=seq(mbr).copy(),
+                                                 coverage=int(u.ucov[mbr])))
                 n_crush += 1
 
         if n_crush:
             # absorbed coverage goes into the member k-mer counts so the next
-            # labeling reproduces the boosted average
-            add_per_node = np.zeros(dbg.n, dtype=np.float64)
-            sel = u.uid >= 0
-            add_per_node[sel] = cov_add[u.uid[sel]]
-            if add_per_node.any():
-                new_counts = dbg.counts.cpu().numpy().astype(np.float64) + add_per_node
-                dbg.counts = torch.from_numpy(
-                    np.minimum(np.round(new_counts), 0xFFFF - 1).astype(np.int64)
-                ).to(dbg.device)
+            # labeling reproduces the boosted average; every unitig has a
+            # node, so any nonzero cov_add reaches one
+            if cov_add.any():
+                lab = dbg.label_unitigs_device()
+                add = unitig_to_nodes(
+                    lab, torch.from_numpy(cov_add).to(dbg.device))
+                dbg.counts = torch.round(
+                    dbg.counts.to(torch.float64) + add).clamp(
+                        max=0xFFFF - 1).to(torch.int64)
             dbg.delete_unitigs(kill)
         LOG.count("crushed", n_crush)
     return n_crush
@@ -379,37 +378,18 @@ def crush_bubble_iterative(dbg: DBG, average_coverage: float,
     return total
 
 
-def _bubble_unitig_mask(dbg: DBG, u) -> np.ndarray:
-    """Unitigs forming a parallel pair between one source and one sink
-    junction (searchBubbleStructure grouping, graph.h:2386-2406)."""
-    succ_idx, _so, _out, outdeg, is_junction = dbg.topo_host()
-    num_u = u.num_unitigs
-    mask = np.zeros(num_u, dtype=bool)
-    if num_u == 0:
-        return mask
-
-    def single_junction_neighbor(oriented):
-        i = oriented // 2
-        o = oriented % 2
-        if outdeg[i, o] != 1:
-            return -1
-        b = int(np.argmax(succ_idx[i, o] >= 0))
-        s = int(succ_idx[i, o, b])
-        return s if s >= 0 and is_junction[s] else -1
-
-    pair_groups: dict[tuple[int, int], list[int]] = {}
-    for r in range(num_u):
-        src = single_junction_neighbor(int(u.uhead[r]) ^ 1)
-        snk = single_junction_neighbor(int(u.utail[r]))
-        if src < 0 or snk < 0:
-            continue
-        pair_groups.setdefault((src, snk), []).append(r)
-        pair_groups.setdefault((snk, src), []).append(r)
-    for members in pair_groups.values():
-        uniq = set(members)
-        if len(uniq) >= 2:
-            for r in uniq:
-                mask[r] = True
+def _bubble_unitig_mask(dbg: DBG) -> torch.Tensor:
+    """(U,) bool on the graph's device: unitigs forming a parallel pair
+    between one source and one sink junction (searchBubbleStructure
+    grouping, graph.h:2386-2406): the members of every junction-pair group
+    of two or more, where an end counts only if it attaches to a junction."""
+    isj = dbg.topo[4]
+    head_j, _hq, tail_j, _tq = _end_attachments(dbg)
+    src = torch.where(isj[head_j.clamp(min=0)], head_j, -1)
+    snk = torch.where(isj[tail_j.clamp(min=0)], tail_j, -1)
+    order, gid, size = _junction_pair_groups(src, snk, dbg.n)
+    mask = torch.zeros(order.shape[0], dtype=torch.bool, device=dbg.device)
+    mask[order] = (gid >= 0) & (size[gid.clamp(min=0)] >= 2)
     return mask
 
 
@@ -418,24 +398,23 @@ def average_coverage_excluding_bubble(dbg: DBG) -> float:
     length-weighted mean coverage over non-bubble unitigs plus junction
     coverages (weight 1 each). The mask runs in the stage `  bubble mask`;
     the open stage gets the counts `unitigs` and `bubble_unitigs` (the
-    mask's)."""
-    u = dbg.label_unitigs()
-    LOG.count("unitigs", u.num_unitigs)
+    mask's). The sums are of integers, exact in int64, read in one pull."""
+    lab = dbg.label_unitigs_device()
+    LOG.count("unitigs", lab.num_u)
     LOG.count("bubble_unitigs", 0)
-    if u.num_unitigs == 0:
+    if lab.num_u == 0:
         return 0.0
     with LOG.stage("  bubble mask"):
-        keep = ~_bubble_unitig_mask(dbg, u)
-    LOG.count("bubble_unitigs", int((~keep).sum()))
-    if not keep.any():
-        keep = np.ones_like(keep)
-    w = u.ulen[keep].astype(np.float64)
-    s = float((u.ucov[keep] * w).sum())
-    num = float(w.sum())
-    _ji, jc = dbg.junction_info()
-    s += float(np.asarray(jc, dtype=np.float64).sum())
-    num += float(len(jc))
-    return s / max(num, 1.0)
+        bubble = _bubble_unitig_mask(dbg)
+    keep = ~bubble
+    keep = keep | ~keep.any()
+    w = torch.where(keep, lab.ulen, 0)
+    isj = dbg.topo[4]
+    s_u, w_u, s_j, n_j, n_bubble = torch.stack([
+        (lab.ucov * w).sum(), w.sum(), torch.where(isj, dbg.counts, 0).sum(),
+        isj.sum(), bubble.sum()]).tolist()
+    LOG.count("bubble_unitigs", n_bubble)
+    return (float(s_u) + float(s_j)) / max(float(w_u) + float(n_j), 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -446,12 +425,9 @@ def average_coverage_excluding_bubble(dbg: DBG) -> float:
 def _chain_pull(dbg: DBG):
     """clean.py:504 _chain_pull_kernel: per-unitig count sums (float32)
     and the end attachments of every unitig."""
-    si, so, _out, od, _isj = dbg.topo
     lab = dbg.label_unitigs_device()
     csum = unitig_count_sums(lab.uid, dbg.counts, lab.num_u)
-    hj, hq = _end_attach(si, so, od, lab.uhead, 0)
-    tj, tq = _end_attach(si, so, od, lab.utail, 1)
-    return csum, hj, hq, tj, tq
+    return (csum, *_end_attachments(dbg))
 
 
 class _ChainSim:
@@ -625,10 +601,7 @@ class _ChainSim:
         scatter has one writer per index."""
         dbg = self.dbg
         lab = dbg.label_unitigs_device()
-        # a node of no unitig reads the spare last slot
-        kill_u = torch.cat([~self.alive[:self.nu],
-                            torch.zeros(1, dtype=torch.bool, device=dbg.device)])
-        node_kill = kill_u[torch.where(lab.uid >= 0, lab.uid, self.nu)]
+        node_kill = unitig_to_nodes(lab, ~self.alive[:self.nu])
         node_kill.scatter_(0, self.j_nodes, ~self.alive[self.nu:])
         dbg.alive = dbg.alive & ~node_kill
         si0, so0, _o, _od, _isj = dbg.topo

@@ -245,22 +245,23 @@ def _label_core(succ_idx, succ_orient, outdeg, is_junction, alive, counts,
 
 @dataclass
 class Unitigs:
-    """Host copies of the labeling, with the JAX package's host dtypes
-    (dbg.py:370)."""
+    """Host copies of the labeling's per-unitig fields, with the JAX
+    package's host dtypes (dbg.py:370). The per-node fields stay on the
+    device (DBG.label_unitigs_device, DBG.topo)."""
 
-    uid: np.ndarray
-    upos: np.ndarray
-    uorient: np.ndarray
     ulen: np.ndarray
     ucov: np.ndarray
     uhead: np.ndarray
     utail: np.ndarray
-    is_junction: np.ndarray
     num_unitigs: int
 
 
-def _host(x: torch.Tensor, dtype) -> np.ndarray:
-    return x.cpu().numpy().astype(dtype)
+def unitig_to_nodes(lab: Labels, per_unitig: torch.Tensor) -> torch.Tensor:
+    """(n,) per node: its unitig's entry of per_unitig (U,), or zero (False
+    for a mask) for a node of no unitig, read from a spare slot (no host
+    sync)."""
+    spare = torch.cat([per_unitig, per_unitig.new_zeros(1)])
+    return spare[torch.where(lab.uid >= 0, lab.uid, lab.num_u)]
 
 
 class DBG:
@@ -298,15 +299,6 @@ class DBG:
             self._topo = _adjacency(self.keys, self.alive, self.k)
         return self._topo
 
-    def topo_host(self):
-        """Node-major host copies: (si (n,2,4), so (n,2,4), out (n,2),
-        outdeg (n,2), is_junction (n,))."""
-        si, so, out, od, isj = self.topo
-        return (_host(si, np.int32).transpose(2, 0, 1),
-                _host(so, np.uint8).transpose(2, 0, 1),
-                _host(out, np.uint8).T, _host(od, np.int32).T,
-                isj.cpu().numpy())
-
     def label_unitigs_device(self) -> Labels:
         if self._labels is None:
             succ_idx, succ_orient, _out, outdeg, is_junction = self.topo
@@ -318,15 +310,14 @@ class DBG:
         return self._labels
 
     def label_unitigs(self) -> Unitigs:
+        """Host copy of the per-unitig fields: one read of the card."""
         if self._unitigs is None:
             lab = self.label_unitigs_device()
+            ulen, ucov, uhead, utail = torch.stack(
+                [lab.ulen, lab.ucov, lab.uhead, lab.utail]).cpu().numpy()
             self._unitigs = Unitigs(
-                uid=_host(lab.uid, np.int32), upos=_host(lab.upos, np.int32),
-                uorient=_host(lab.uorient, np.int32),
-                ulen=_host(lab.ulen, np.int32), ucov=_host(lab.ucov, np.uint32),
-                uhead=_host(lab.uhead, np.int32),
-                utail=_host(lab.utail, np.int32),
-                is_junction=self.topo[4].cpu().numpy(),
+                ulen=ulen.astype(np.int32), ucov=ucov.astype(np.uint32),
+                uhead=uhead.astype(np.int32), utail=utail.astype(np.int32),
                 num_unitigs=lab.num_u)
         return self._unitigs
 
@@ -367,22 +358,11 @@ class DBG:
         return flat[:total], offs, lens
 
     def unitig_sequences_flat(self):
-        """Host form of unitig_sequences_flat_device (numpy)."""
-        flat, offs, lens = self.unitig_sequences_flat_device()
-        return flat.cpu().numpy(), offs.cpu().numpy(), lens.cpu().numpy()
-
-    def unitig_sequences(self) -> tuple[np.ndarray, np.ndarray]:
-        """(seqs (U, lmax) uint8 padded with 4, base lengths (U,)), built
-        on the host from the flat form (dbg.py:582)."""
-        flat, offs, base_lens = self.unitig_sequences_flat()
-        num_u = len(base_lens)
-        if num_u == 0:
-            return np.zeros((0, 0), np.uint8), np.zeros((0,), np.int64)
-        lmax = _next_pow2(int(base_lens.max()), minimum=64)
-        seqs = np.full((num_u, lmax), 4, dtype=np.uint8)
-        for i in range(num_u):
-            seqs[i, : base_lens[i]] = flat[offs[i]: offs[i] + base_lens[i]]
-        return seqs, base_lens
+        """Host form of unitig_sequences_flat_device (numpy): one pull of
+        the flat bases; offs and lens come from the host labeling."""
+        lens = self.label_unitigs().ulen.astype(np.int64) + (self.k - 1)
+        flat = self.unitig_sequences_flat_device()[0].cpu().numpy()
+        return flat, np.cumsum(lens) - lens, lens
 
     def junction_info(self):
         """(indices, counts) of alive junction k-mers (host)."""
@@ -404,10 +384,6 @@ class DBG:
         else:
             self.invalidate()
 
-    def delete_unitigs(self, unitig_mask: np.ndarray) -> None:
-        u = self.label_unitigs()
-        umask = np.asarray(unitig_mask)
-        node_kill = np.zeros(self.n, dtype=bool)
-        sel = u.uid >= 0
-        node_kill[sel] = umask[u.uid[sel]]
-        self.delete_nodes(node_kill)
+    def delete_unitigs(self, unitig_mask) -> None:
+        mask = torch.as_tensor(unitig_mask, device=self.device)
+        self.delete_nodes(unitig_to_nodes(self.label_unitigs_device(), mask))

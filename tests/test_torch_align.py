@@ -8,6 +8,8 @@ min(bw, qlen) cells of a pair changes nothing; and, for the phasing flow,
 that the host DP at band 64 (the CPU path) and the band-128 edit distance
 (the card path) measure its segments alike."""
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,8 @@ with a second haplotype at -u 0.1, where bubbles are crushed beside the
 repeats (at the default -u 0 no bubble is crushed).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import os
 
 import numpy as np

@@ -9,6 +9,8 @@ max_gap; a lookback above 32 (the kernel's strided lanes) and above 128
 (tests/test_torch_cuda.py); here the CPU path must never build it.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

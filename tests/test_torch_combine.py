@@ -6,6 +6,8 @@ tests/test_combine_cmd.py's data, every written file byte for byte
 unknown command.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 

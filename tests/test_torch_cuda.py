@@ -8,6 +8,8 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch
@@ -690,7 +692,7 @@ def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
 
     g = _circular_dbg(dev)
     cpu = tdbg.DBG(g.k, g.keys.cpu(), g.counts.cpu())
-    want = cpu.label_unitigs()
+    want = cpu.label_unitigs_device()
 
     def no_plain(*_a, **_k):
         raise AssertionError("plain version called on the card")
@@ -716,10 +718,10 @@ def test_labeling_on_card_launches_k5_k6_and_syncs_twice(dev, monkeypatch):
     assert len(syncs) == 2, [str(w.message) for w in syncs]
     assert kernels.LAUNCHES["list_rank"] == before["list_rank"] + 3
     assert kernels.LAUNCHES["unitig_sum"] == before["unitig_sum"] + 1
-    got = g.label_unitigs()
+    got = g.label_unitigs_device()
     for f in ("uid", "upos", "uorient", "ulen", "ucov", "uhead", "utail"):
-        assert np.array_equal(getattr(got, f), getattr(want, f)), f
-    assert lab.num_u == want.num_unitigs == got.num_unitigs
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert lab.num_u == want.num_u == got.num_u
 
 
 def test_search_wrappers_do_not_sync(dev):
@@ -823,7 +825,7 @@ def test_cleaning_replay_on_card_is_the_cpu_replay(dev, monkeypatch, graph):
             0.5)
     want.append(tclean.delete_erroneous_iterative(cpu, *args))
     assert want[0] > 0
-    ref = cpu.label_unitigs()
+    ref = cpu.label_unitigs_device()
 
     def no_plain(*_a, **_k):
         raise AssertionError("plain version called on the card")
@@ -875,9 +877,69 @@ def test_cleaning_replay_on_card_is_the_cpu_replay(dev, monkeypatch, graph):
     assert got == want
     assert kernels.LAUNCHES["list_rank"] > before
     assert torch.equal(g.alive.cpu(), cpu.alive)
-    have = g.label_unitigs()
+    have = g.label_unitigs_device()
     for f in ("uid", "upos", "uorient", "ulen", "ucov", "uhead", "utail"):
-        assert np.array_equal(getattr(have, f), getattr(ref, f)), f
+        assert torch.equal(getattr(have, f).cpu(), getattr(ref, f)), f
+
+
+# synchronizing calls on a labeled graph: average_coverage_excluding_bubble
+# pulls its five sums at once; a crush_bubble round that aligns and crushes
+# pulls the per-unitig labeling, the junction-pair groups and the flat
+# sequences (their length, then the bases), moves the pairs' four rows and
+# lengths to the card and their distances back, and moves the absorbed
+# coverage and the kill mask, one entry a unitig, to the card
+AVERAGE_COVERAGE_SYNCS, CRUSH_ROUND_SYNCS = 1, 1 + 1 + 2 + 5 + 2
+
+
+def test_bubble_reads_on_card_are_per_unitig(dev):
+    """average_coverage_excluding_bubble and one crush_bubble round on the
+    families_het graph (torch_families at 0.5 % heterozygosity, its tips
+    cut) on the card equal the CPU run of the same graph; each makes the
+    pinned synchronizing calls above, none of which moves an array with
+    one entry a node."""
+    import warnings
+
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models import assemble_core as tcore
+    from platanus_b_tpu_torch.models import clean as tclean
+    reads = torch_families.families_reads(het=0.005)
+    table, _h = tcore.count_reads(tcore.stage_reads([pack_reads(reads)], dev),
+                                  32)
+    g = tcore.build_dbg_from_table(table, 2)
+    cpu = tcore.build_dbg_from_table(
+        tcore.KmerTable(32, table.keys.cpu(), table.counts.cpu()), 2)
+    for graph in (cpu, g):
+        tclean.cut_branch_iterative(graph, 0.5)
+    want_cov = tclean.average_coverage_excluding_bubble(cpu)
+    want = []
+    want_n = tclean.crush_bubble(cpu, want_cov, 0.1, want)
+    assert want_n > 0
+
+    def synced(fn, *a):
+        g.label_unitigs_device()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [str(w.message) for w in caught
+                     if "called a synchronizing CUDA operation"
+                     in str(w.message)]
+
+    cov, syncs = synced(tclean.average_coverage_excluding_bubble, g)
+    assert len(syncs) == AVERAGE_COVERAGE_SYNCS, syncs
+    assert cov == want_cov
+    got = []
+    n, syncs = synced(tclean.crush_bubble, g, cov, 0.1, got)
+    assert len(syncs) == CRUSH_ROUND_SYNCS, syncs
+    assert n == want_n
+    assert [b.coverage for b in got] == [b.coverage for b in want]
+    assert all(np.array_equal(x.seq, y.seq) for x, y in zip(got, want))
+    assert torch.equal(g.counts.cpu(), cpu.counts)
+    assert torch.equal(g.alive.cpu(), cpu.alive)
 
 
 # K7: (uid, counts, num_u) of each case; "long_300k" is one unitig of

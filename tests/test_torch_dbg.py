@@ -6,6 +6,8 @@ adjacency, unitig labels, sequences and every cleaning step must then
 agree exactly (node ids are equal on both sides).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import io
 
 import numpy as np
@@ -75,19 +77,23 @@ def _assert_same_graph(j, t):
     assert (t.alive.cpu().numpy() == np.asarray(j.alive)[:n]).all()
     ju, tu = j.label_unitigs(), t.label_unitigs()
     assert tu.num_unitigs == ju.num_unitigs
-    assert (tu.uid == ju.uid[:n]).all()
+    lab = t.label_unitigs_device()
+    assert (lab.uid.cpu().numpy() == ju.uid[:n]).all()
     member = ju.uid[:n] >= 0
-    assert (tu.upos[member] == ju.upos[:n][member]).all()
-    assert (tu.uorient[member] == ju.uorient[:n][member]).all()
+    assert (lab.upos.cpu().numpy()[member] == ju.upos[:n][member]).all()
+    assert (lab.uorient.cpu().numpy()[member] == ju.uorient[:n][member]).all()
     for f in ("ulen", "ucov", "uhead", "utail"):
         assert (getattr(tu, f) == getattr(ju, f)).all(), f
         assert getattr(tu, f).dtype == getattr(ju, f).dtype, f
     jf, joffs, jlens = j.unitig_sequences_flat()
     tf, toffs, tlens = t.unitig_sequences_flat()
     assert (tf == jf).all() and (toffs == joffs).all() and (tlens == jlens).all()
+    # the JAX package's padded matrix, rebuilt from the port's flat form
     js, jl = j.unitig_sequences()
-    ts, tl = t.unitig_sequences()
-    assert (ts == js).all() and (tl == jl).all()
+    ts = np.full_like(js, 4)
+    for i, (o, ln) in enumerate(zip(toffs, tlens)):
+        ts[i, :ln] = tf[o: o + ln]
+    assert (ts == js).all() and (tlens == jl).all()
     ji, jc = j.junction_info()
     ti, tc = t.junction_info()
     assert (ti == ji).all() and (tc == jc).all()
@@ -104,8 +110,39 @@ def test_adjacency_labels_sequences(name):
         # a cycle with no junction: the mirror-consistent cut gives one
         # unitig holding every k-mer
         u = t.label_unitigs()
-        assert not u.is_junction.any()
+        assert not t.topo[4].any()
         assert u.num_unitigs == 1 and u.ulen[0] == 260
+
+
+def _loop_beside_pair():
+    """A junction U with a unitig that leaves it and comes back (U + Q +
+    U) and, beside it, two branches from U to a second junction (one base
+    apart, c1 and c2, before a shared M): the loop's two ends attach to
+    one junction, and only the pair is a bubble."""
+    rng = np.random.default_rng(5)
+    k = 21
+    lead, u, q, m = (simdata.random_genome(rng, n) for n in (30, k, 30, 40))
+    reads = 3 * [lead + u + q + u + "A" + m, u + "C" + m]
+    keys, counts, n = jcnt.count_batch(pack_reads(reads).codes, k)
+    keys_h, counts_h = jcnt.compact_host(keys, counts, n)
+    return (JDBG(k, keys_h, counts_h),
+            interop.dbg_from_arrays(k, keys_h, counts_h))
+
+
+@pytest.mark.parametrize("name", DATASETS + ["loop_beside_pair"])
+def test_bubble_mask_is_the_reference_mask(name):
+    """The bubble mask of average_coverage_excluding_bubble, grouped on the
+    device by unordered junction pair, marks the unitigs that the JAX
+    package's dict of ordered pairs marks; a unitig from a junction back
+    to itself is one member of its group, as the dict's set() makes it."""
+    j, t = _loop_beside_pair() if name == "loop_beside_pair" else _pair(name)
+    want = jclean._bubble_unitig_mask(j, j.label_unitigs())
+    got = tclean._bubble_unitig_mask(t)
+    assert got.cpu().numpy().tolist() == want.tolist()
+    if name == "loop_beside_pair":
+        head_j, _hq, tail_j, _tq = tclean._end_attachments(t)
+        assert ((head_j == tail_j) & (head_j >= 0)).sum() == 1
+        assert want.sum() == 2
 
 
 @pytest.mark.parametrize("name", DATASETS)

@@ -4,6 +4,8 @@ long-read and later-round paths are in tests/test_torch_longread_cli.py
 and tests/test_torch_combine.py.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ layout must give its bytes exactly, and the tables must equal the JAX
 package's on the same graph (node ids are equal on both sides).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

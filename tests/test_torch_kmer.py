@@ -4,6 +4,8 @@ Inputs come from numpy with a fixed seed and go to both packages; keys
 compare as (N, W) uint32 words after the port's keys_to_words.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,8 @@
 models/longread.py) against the JAX package's on the same inputs: the
 sketch whole, and every alignment's PAF line."""
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 

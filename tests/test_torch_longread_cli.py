@@ -9,6 +9,8 @@ Long reads come from simulate.simulate_long_reads: both strands, with
 substitutions, insertions and deletions.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import contextlib
 
 import jax

@@ -6,6 +6,8 @@ the same numpy reads; every output array is compared whole, unmapped rows
 included. Reads come from tests/simdata.py genomes of a few kbp.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ with the same inputs and the same answers. Also: the native IO library
 builds safely when several processes start at once.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import os
 import pathlib
 import shutil

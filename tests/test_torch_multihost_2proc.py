@@ -10,6 +10,8 @@ mapping (against the JAX functions on a 2-device mesh, shard for shard),
 and the CLI's files.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import json
 import os
 import socket

@@ -4,6 +4,8 @@ tests/test_polish.py, and the CLI byte for byte.
 The port runs its plain PyTorch versions on the CPU; outputs are exact.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import os
 
 import numpy as np

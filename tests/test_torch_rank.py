@@ -24,6 +24,8 @@ kernels (list_rank, lex_search and unitig_sum run only on the card,
 tests/test_torch_cuda.py).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import math
 
 import jax.numpy as jnp

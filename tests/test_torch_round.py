@@ -5,6 +5,8 @@ parity/gapclose_bench.py's. Both CLIs run from the work directory with
 relative paths, so output names carry no directory.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import os
 
 import numpy as np

@@ -6,6 +6,8 @@ the tag counts of a tagged library — each equal to the JAX package's on
 the same inputs, whole.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import pathlib
 import re
 import textwrap

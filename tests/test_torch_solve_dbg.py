@@ -7,6 +7,8 @@ headers and intermediate directories agree without renaming
 (`run_both`, also used by tests/test_torch_iterate.py).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import pathlib
 import shutil
 

@@ -10,6 +10,8 @@ with repeat families and a second haplotype (-u 0.1), holds the bubble
 stages and the counts of the bubbles and of the contig file.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's CPU threads)
+
 import contextlib
 import io
 import json
