@@ -124,16 +124,19 @@ def stage_read_files(paths: list[str], device) -> StagedReads:
 def count_reads_device(reads: StagedReads, k: int):
     """Count canonical k-mers of all reads in one sort (the JAX package's
     fused path, count_staged / count_lanes_fused). Returns (keys (n, L),
-    counts (n,), n, histogram (host int32))."""
+    counts (n,), n, histogram (host int32)). Counts on the open stage:
+    `rows`, the windows sorted, and `kmers`, the distinct k-mers."""
     dev = reads.device
     if reads.num_reads == 0 or reads.max_len < k:
         t = empty_table(k, dev)
         return (t.keys, t.counts, 0,
                 np.zeros(cnt.MAX_OCCURRENCE + 1, np.int32))
     keys, n_valid = reads.kmers(k)
-    ukeys, ucounts, n = cnt.count_lanes_fused(
-        keys.reshape(-1, keys.shape[-1]), n_valid=n_valid)
-    del keys
+    rows = keys.reshape(-1, keys.shape[-1])
+    ukeys, ucounts, n = cnt.count_lanes_fused(rows, n_valid=n_valid)
+    LOG.count("rows", rows.shape[0])
+    LOG.count("kmers", n)
+    del keys, rows
     hist = cnt.histogram_host(cnt.occurrence_histogram(ucounts))
     return ukeys, ucounts, n, hist
 

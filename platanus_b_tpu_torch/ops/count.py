@@ -1,11 +1,11 @@
 """Deterministic k-mer counting: sort + run lengths (counterpart of ops/count.py).
 
 One counting path: extract all canonical windows (``kmer_extract``), sort
-the lanes, find run ends, take run lengths from an exclusive ``cummax`` of
-end positions, and compact the run ends. Tables are trimmed to their live
-rows (no power-of-two capacity): ``(keys (n, L) int64 lanes, counts (n,)
-int64)``, sorted ascending. Occurrences saturate at MAX_OCCURRENCE like the
-reference's u16 counter.
+the lanes, find run ends, read them once, and take run lengths from
+differences of their positions (``_run_totals``). Tables are trimmed to
+their live rows (no power-of-two capacity): ``(keys (n, L) int64 lanes,
+counts (n,) int64)``, sorted ascending. Occurrences saturate at
+MAX_OCCURRENCE like the reference's u16 counter.
 
 The host helpers at the end (cutoff, distribution average, TSV,
 ``kmer_occ.bin`` writer and reader) are lifted unchanged from
@@ -28,16 +28,33 @@ def _neq_prev(skeys: torch.Tensor) -> torch.Tensor:
     return (skeys[1:] != skeys[:-1]).any(dim=1)
 
 
-def _run_marks(sorted_keys: torch.Tensor):
-    """(valid, is_new, is_end) over sorted keys; SENTINEL rows sort last."""
+def _run_marks(sorted_keys: torch.Tensor, n_valid=None):
+    """(valid, is_new, is_end) over sorted keys; SENTINEL rows sort last.
+    With n_valid the valid rows are the sorted prefix of that length."""
     n = sorted_keys.shape[0]
     dev = sorted_keys.device
-    valid = ~is_sentinel(sorted_keys)
+    if n_valid is None:
+        valid = ~is_sentinel(sorted_keys)
+    else:
+        valid = torch.arange(n, device=dev) < n_valid
     neq = _neq_prev(sorted_keys)
     one = torch.ones(1, dtype=torch.bool, device=dev)
     is_new = valid & torch.cat([one, neq]) if n else valid
     is_end = valid & torch.cat([neq, one]) if n else valid
     return valid, is_new, is_end
+
+
+def _run_totals(is_end: torch.Tensor, running=None):
+    """(ends, totals): each run's last row, read once, and its total.
+
+    The one run-length rule: a run's total is the running total at its end
+    less the running total at the previous run's end (0 before the first
+    run). `running` holds each row's inclusive running total; without it
+    every row counts one, and since the valid rows of sorted keys are a
+    prefix from row 0, the running total at row i is i + 1: no scan."""
+    ends = torch.nonzero(is_end)[:, 0]
+    upto = ends + 1 if running is None else running[ends]
+    return ends, torch.diff(upto, prepend=upto.new_zeros(1))
 
 
 def dedup_sum(sorted_keys: torch.Tensor, sorted_counts: torch.Tensor):
@@ -47,11 +64,8 @@ def dedup_sum(sorted_keys: torch.Tensor, sorted_counts: torch.Tensor):
     totals are differences of the inclusive cumsum at run ends."""
     valid, _is_new, is_end = _run_marks(sorted_keys)
     counts = torch.where(valid, sorted_counts.to(torch.int64), 0)
-    csum = torch.cumsum(counts, dim=0)
-    ends = csum[is_end]
-    ucounts = torch.diff(ends, prepend=ends.new_zeros(1))
-    ukeys = sorted_keys[is_end]
-    return ukeys, ucounts, int(ukeys.shape[0])
+    ends, ucounts = _run_totals(is_end, torch.cumsum(counts, dim=0))
+    return sorted_keys[ends], ucounts, int(ends.shape[0])
 
 
 def dedup_max(sorted_keys: torch.Tensor, sorted_vals: torch.Tensor):
@@ -73,31 +87,10 @@ def sort_dedup_sum(keys: torch.Tensor, counts: torch.Tensor):
     return dedup_sum(skeys, scounts)
 
 
-def _marks_runlens(slanes: torch.Tensor, n_valid=None):
-    """(is_end, counts) over sorted keys: run ends + run lengths.
-
-    At a run's end the previous run's end position is the exclusive
-    running max of end-masked positions, so length = pos - prev
-    (count.py:187). With n_valid the valid rows are the sorted prefix."""
-    n = slanes.shape[0]
-    dev = slanes.device
-    if n_valid is None:
-        valid = ~is_sentinel(slanes)
-    else:
-        valid = torch.arange(n, device=dev) < n_valid
-    neq = _neq_prev(slanes)
-    is_end = valid & torch.cat([neq, torch.ones(1, dtype=torch.bool,
-                                                device=dev)])
-    pos = torch.arange(1, n + 1, device=dev)
-    endpos = torch.where(is_end, pos, 0)
-    prev = torch.cat([endpos.new_zeros(1), torch.cummax(endpos, dim=0)[0][:-1]])
-    counts = torch.where(is_end, torch.clamp(pos - prev, max=MAX_OCCURRENCE), 0)
-    return is_end, counts
-
-
 def count_lanes_fused(keys: torch.Tensor, n_valid=None):
     """Count every window at once (count.py:274): one lexicographic sort,
-    run lengths, compaction of run ends. keys (N, L), SENTINEL = invalid.
+    run ends, run lengths from their positions. keys (N, L), SENTINEL =
+    invalid; with n_valid the valid rows are the sorted prefix.
     Returns (ukeys (n, L), counts (n,) int64, n)."""
     L = keys.shape[1]
     if keys.shape[0] == 0:
@@ -106,9 +99,10 @@ def count_lanes_fused(keys: torch.Tensor, n_valid=None):
         skeys = torch.sort(keys[:, 0])[0][:, None]
     else:
         skeys = keys[lexsort(keys)]
-    is_end, counts = _marks_runlens(skeys, n_valid)
-    ukeys = skeys[is_end]
-    return ukeys, counts[is_end], int(ukeys.shape[0])
+    _valid, _is_new, is_end = _run_marks(skeys, n_valid)
+    ends, counts = _run_totals(is_end)
+    return (skeys[ends], counts.clamp(max=MAX_OCCURRENCE),
+            int(ends.shape[0]))
 
 
 def merge_counts(keys_a, counts_a, keys_b, counts_b):

@@ -786,6 +786,68 @@ def test_save_contig_next_k_on_card_is_the_cpu_table(dev):
     assert torch.equal(got.counts.cpu(), want.counts)
 
 
+# synchronizing calls of one count_reads_device on staged reads: the run
+# ends' compaction (one nonzero), occurrence_histogram's nonzero counts and
+# bincount's range (min and max), the histogram to the host
+COUNT_SYNCS = 5
+
+
+@pytest.mark.parametrize("k", [32, 48])
+def test_count_on_card_is_the_cpu_count(dev, k):
+    """count_reads_device on the card equals the CPU count byte for byte,
+    histogram included, on reads with Ns beside poly-A reads whose one
+    k-mer passes MAX_OCCURRENCE; the run lengths launch no one-block scan
+    (torch.cummax's `scan_innermost_dim_with_indices`), and the count
+    makes COUNT_SYNCS synchronizing calls."""
+    import warnings
+
+    from platanus_b_tpu_torch.io.reads import pack_reads
+    from platanus_b_tpu_torch.models.assemble_core import (count_reads_device,
+                                                           stage_reads)
+    from platanus_b_tpu_torch.ops.count import MAX_OCCURRENCE
+    rng = np.random.default_rng(k)
+    genome = simdata.random_genome(rng, 20_000)
+    reads = simdata.shotgun_reads(rng, genome, 125, 20.0, error_rate=0.005)
+    reads = [r[:40] + "N" + r[41:] if i % 7 == 0 else r
+             for i, r in enumerate(reads)]
+    reads += ["A" * 125] * -(-(MAX_OCCURRENCE + 1_000) // (125 - k + 1))
+    batch = pack_reads(reads)
+    want_k, want_c, want_n, want_h = count_reads_device(
+        stage_reads([batch], "cpu"), k)
+    staged = stage_reads([batch], dev)
+    assert staged.has_n
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            keys, counts, n, hist = count_reads_device(staged, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == COUNT_SYNCS, syncs
+    assert keys.is_cuda and n == want_n > 10_000
+    assert torch.equal(keys.cpu(), want_k) and torch.equal(counts.cpu(), want_c)
+    assert counts.dtype == want_c.dtype == torch.int64
+    assert int(counts.max()) == MAX_OCCURRENCE
+    assert hist.dtype == want_h.dtype and hist.tobytes() == want_h.tobytes()
+    acts = [torch.profiler.ProfilerActivity.CPU,   # as in the labeling's
+            torch.profiler.ProfilerActivity.CUDA]  # test below
+    with torch.profiler.profile(activities=acts) as prof:
+        count_reads_device(staged, k)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    names = {e.name for e in events}
+    launched = {e.name for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert "aten::nonzero" in names, sorted(names)
+    assert any("kmer_extract" in x for x in launched), (len(events),
+                                                         sorted(names))
+    assert not [x for x in names
+                if "cummax" in x or "scan_innermost_dim_with_indices" in x]
+
+
 # synchronizing calls of the cleaning replay on a labeled graph: the pull
 # reads the junction list; a cut-branch round reads its ranking's cycle
 # flag and its kill count; a delete iteration reads its two rankings'
@@ -1068,7 +1130,10 @@ def test_labeling_sums_are_one_device_op(dev):
         tdbg.unitig_count_sums = orig
     (uid, counts, num_u, with_ulen), = calls
     assert with_ulen and num_u > 0
-    acts = [torch.profiler.ProfilerActivity.CUDA]
+    # CPU activity too: a CUDA-only trace has come back empty on the card
+    # after another profiler run in the same process
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     for warm in (False, True):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:

@@ -177,6 +177,67 @@ def test_count_saturates_at_max_occurrence():
     assert (tkeys.keys_to_words(tu, k) == ju).all()
 
 
+# rows of the saturated case's last run past MAX_OCCURRENCE
+_PAST_MAX = 1_000
+
+
+def _count_table(case, W, rng):
+    """(N, W) uint32 keys of one run-length case, SENTINEL rows included."""
+    base = np.unique(rng.integers(1, 1 << 31, size=(40, W)).astype(np.uint32),
+                     axis=0)
+    sent = np.full((1, W), 0xFFFFFFFF, np.uint32)
+    largest = np.full((1, W), 0xFFFFFFFE, np.uint32)   # sorts before SENTINEL
+    if case == "one_row":
+        return base[:1]
+    if case == "prefix_then_sentinel":
+        keys = base[rng.integers(0, len(base), size=300)]
+        return np.concatenate([keys, np.repeat(sent, 37, axis=0)])
+    if case == "single_row_runs_at_ends":
+        keys = np.concatenate([np.zeros((1, W), np.uint32),
+                               np.repeat(base[:6], 3, axis=0), largest])
+        return keys[rng.permutation(len(keys))]
+    # saturated_last_run: the last run of the valid prefix passes
+    # MAX_OCCURRENCE
+    keys = np.concatenate([base, base[:5],
+                           np.repeat(largest, tcnt.MAX_OCCURRENCE + _PAST_MAX,
+                                     axis=0),
+                           np.repeat(sent, 9, axis=0)])
+    return keys[rng.permutation(len(keys))]
+
+
+@pytest.mark.parametrize("n_valid_given", [False, True])
+@pytest.mark.parametrize("case", ["prefix_then_sentinel",
+                                  "single_row_runs_at_ends", "one_row",
+                                  "saturated_last_run"])
+@pytest.mark.parametrize("k", [32, 48])
+def test_count_lanes_fused_run_lengths_match_jax(k, case, n_valid_given):
+    """Run lengths from the run ends' positions, at one int64 lane (k 32)
+    and two (k 48), with n_valid given or taken from the SENTINEL rows,
+    equal the JAX package's count, saturation included."""
+    W = jmw.num_words(k)
+    keys = _count_table(case, W, np.random.default_rng(k))
+    ju, jc, jn = jcnt.count_lanes_fused(
+        tuple(jnp.asarray(keys[:, w]) for w in range(W)))
+    jn = int(jn)
+    live = (keys != 0xFFFFFFFF).any(axis=1)
+    valid = int(live.sum())
+    n_valid = torch.tensor([valid]) if n_valid_given else None
+    lanes = tkeys.keys_from_words(keys)
+    assert lanes.shape[1] == (1 if k == 32 else 2)
+    tu, tc, tn = tcnt.count_lanes_fused(lanes, n_valid)
+    assert tn == jn == len(np.unique(keys[live], axis=0))
+    assert tc.dtype == torch.int64
+    assert (tkeys.keys_to_words(tu, k)
+            == np.stack([np.asarray(x)[:jn] for x in ju], axis=-1)).all()
+    assert (tc.numpy() == np.asarray(jc)[:jn]).all()
+    saturated = case == "saturated_last_run"
+    assert int(tc.sum()) == valid - (_PAST_MAX if saturated else 0)
+    if saturated:
+        assert int(tc[-1]) == tcnt.MAX_OCCURRENCE
+    if case in ("single_row_runs_at_ends", "one_row"):
+        assert int(tc[0]) == 1 and int(tc[-1]) == 1
+
+
 @pytest.mark.parametrize("k", [25, 48])
 def test_dedup_max_matches_jax(k):
     rng = np.random.default_rng(k)

@@ -326,6 +326,25 @@ def test_contig_counts_match_the_file(families_job):
     assert 0 < avg.counters["bubble_unitigs"] <= avg.counters["unitigs"]
 
 
+def test_counts_record_rows_and_kmers(families_job):
+    """Every count of the reads records the windows it sorted (`rows`) and
+    the distinct k-mers (`kmers`): at k0 a row for each read and window
+    start, and the k-mers of the occurrence distribution; a recount sorts
+    fewer rows (a larger k, the reads its filter kept)."""
+    records, _log, _argv, work = families_job
+    reads = (work / "reads.fa").read_text().count(">")
+    [k0] = [s for s in records if s.name == "K = 32, saving kmers from reads"]
+    recounts = [s for s in records if s.name == "    recount: count reads"]
+    assert recounts
+    frq = (work / "job_32merFrq.tsv").read_text().splitlines()
+    assert k0.counters == {"rows": reads * (125 - 32 + 1),
+                           "kmers": sum(int(ln.split("\t")[1]) for ln in frq)}
+    for s in recounts:
+        assert set(s.counters) == {"rows", "kmers"}
+        assert 0 < s.counters["kmers"] <= s.counters["rows"]
+        assert s.counters["rows"] < k0.counters["rows"]
+
+
 def test_stages_leave_the_outputs_alone(families_job, monkeypatch):
     """The job with the stage clock patched out (no stage, no count)
     writes the same bytes."""
